@@ -13,11 +13,28 @@ Phases (any failure raises and the script exits nonzero):
   4. reference — a 2-layer model at head dim 128 through prefill + decode on
                the card (kernels) and on the CPU in fp32 (plain versions):
                logits must agree;
+  3b. backward kernels — kernels C (dq) and D (dk, dv) against the plain
+               backward at 8B shapes, causal and not, ragged, with an lse
+               cotangent and an empty row; bitwise equal on a second launch;
+               median times of each kernel and of the plain backward;
+  4. reference — a 2-layer model at head dim 128 through prefill + decode on
+               the card (kernels) and on the CPU in fp32 (plain versions):
+               logits must agree;
+  4b. train reference — one train_step of a 2-layer model on one packed
+               T=1024 row (text, a prompt image, an answer image) on the card
+               (bf16, kernels) and on the CPU (fp32, plain): losses and
+               gradients must agree;
   5. main path — ServeEngine at full width (LLaMA-3.1-8B + SigLIP-SO400M,
                mlp2x_gelu projector, K=64, random bf16 weights from seed 0,
                8 slots, 4096-token cache) serving text requests (one long
                enough for the 2048 prefill bucket) and one image request
-               encoded by the port's SigLIP tower; twice, with identical ids.
+               encoded by the port's SigLIP tower; twice, with identical ids;
+  5b. train main path — configs/stage2_finetune.json (LLaMA-3.1-8B +
+               SO400M, dual loss) cut to one card: 4 train steps on one packed
+               4096-token row with a prompt and an answer image; step time,
+               tokens/s, peak memory; kernels A, C and D must run;
+  5c. train() — the trainer loop at the 4b width: logging, saves, pruning and
+               a resume.
 
 The last two lines of stdout are the kernel summary JSON and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -27,14 +44,19 @@ repository checkout, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the 8B train step runs near the card's memory: let the allocator grow
+# segments instead of fragmenting (read when CUDA first initialises)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 FLASH_TOL_O = 2e-2      # bf16 output vs fp32 plain: half a bf16 step of |o|
                         # (<= 0.0078 below 4) plus the bf16 P tile of the PV
@@ -42,6 +64,12 @@ FLASH_TOL_O = 2e-2      # bf16 output vs fp32 plain: half a bf16 step of |o|
 FLASH_TOL_LSE = 2e-3    # fp32 logsumexp; only the fp32 sum order differs
 DECODE_TOL = 2e-2       # bf16 output vs fp32 plain (P stays fp32 in kernel B)
 REF_MIN_COS = 0.999     # bf16 model on the card vs fp32 model on the CPU
+BWD_TOL = 3e-2          # kernels C/D: max|err| / max|ref| of dq, dk, dv; P and
+                        # dS enter the tensor-core products in bf16 (relative
+                        # 2**-9 each) and the outputs are bf16
+TRAIN_LOSS_RTOL = 2e-2  # bf16 train step on the card vs fp32 on the CPU
+TRAIN_MIN_GRAD_COS = 0.99
+PEAK_BF16_TFLOPS = 989.0   # H100 SXM dense bf16 (data sheet, 700 W)
 
 
 def log(*a):
@@ -166,6 +194,84 @@ def phase_kernels(torch, dev):
     return rows
 
 
+def phase_bwd_kernels(torch, dev):
+    """Kernels C and D against the plain backward at 8B attention shapes,
+    in the model layout the train step gives them."""
+    from metamorph_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    H, KV, Dh = 32, 8, 128
+    scale = Dh ** -0.5
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    # (B, T, S, causal, lengths, with dlse)
+    cases = [
+        (1, 4096, 4096, True, [4096], False),     # the 5b main path's shape
+        (1, 2048, 2048, True, [2048], False),
+        (2, 2048, 2048, True, [2048, 1337], False),
+        (2, 777, 777, True, [777, 500], False),
+        (2, 512, 777, False, [777, 600], True),
+        (2, 512, 512, True, [512, 0], False),     # a row with no key
+    ]
+    for B, T, S, causal, lens, with_dlse in cases:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        # model layout, read by the kernels through strides
+        q, k, v = randn(B, T, H, Dh), randn(B, S, KV, Dh), randn(B, S, KV, Dh)
+        do = randn(B, T, H, Dh)
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        o, lse = fa.flash_attention_with_lse(qt, kt, vt, lengths, causal)
+        dlse = (torch.randn((B, H, T), generator=gen, device=dev)
+                if with_dlse else None)
+        got = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, dlse, lengths,
+                                     causal, scale)
+        again = fa.flash_attention_bwd(qt, kt, vt, o, lse, dot, dlse,
+                                       lengths, causal, scale)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_bwd_plain(qt.float(), kt.float(), vt.float(),
+                                           o.float(), lse, dot.float(), dlse,
+                                           lengths, causal, scale)
+        err, rel, repeat = {}, {}, True
+        for name, x, y, r in zip(("dq", "dk", "dv"), got, again, ref):
+            d = (x.float() - r).abs().max().item()
+            err[name] = d
+            rel[name] = d / max(r.abs().max().item(), 1e-30)
+            repeat = repeat and torch.equal(x, y) and bool(
+                torch.isfinite(x).all())
+        del ref, again
+        torch.cuda.empty_cache()
+        # kernel-only timings: delta precomputed, each kernel launched alone
+        delta = (dot.float() * o.float()).sum(-1)
+        dd = (delta - dlse if dlse is not None else delta).contiguous()
+        dq, dk, dv = got
+        ms_dq = cuda_ms(lambda: fa._launch_dq(qt, kt, vt, dot, lse, dd,
+                                              dq, lengths, causal, scale))
+        ms_dkv = cuda_ms(lambda: fa._launch_dkv(qt, kt, vt, dot, lse, dd,
+                                                dk, dv, lengths, causal,
+                                                scale))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            qt, kt, vt, o, lse, dot, dlse, lengths, causal, scale), iters=5,
+            warmup=1)
+        row = dict(B=B, T=T, S=S, causal=causal, lengths=lens,
+                   dlse=with_dlse, max_abs_err=err, rel_err=rel,
+                   tol_rel=BWD_TOL, bitwise_repeat=repeat, ms_dq=ms_dq,
+                   ms_dkv=ms_dkv, plain_ms=plain_ms)
+        log("kernels C/D flash_bwd", json.dumps(row))
+        if not (repeat and max(rel.values()) <= BWD_TOL):
+            raise AssertionError(f"backward kernels disagree with plain or "
+                                 f"do not repeat: {row}")
+        if lens[-1] == 0 and not all(bool((g[-1] == 0).all()) for g in got):
+            raise AssertionError("a row with no visible key got a gradient")
+        rows.append(row)
+        del q, k, v, do, o, lse, got, dq, dk, dv, delta, dd
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_reference(torch, dev):
     """Small model, same weights: card (bf16, kernels) vs CPU (fp32, plain
     versions) through prefill and greedy decode steps."""
@@ -213,6 +319,73 @@ def phase_reference(torch, dev):
     log("reference (card bf16 kernels vs CPU fp32 plain)", json.dumps(row))
     if worst < REF_MIN_COS:
         raise AssertionError(f"card disagrees with the CPU reference: {row}")
+    return row
+
+
+def small_train_cfg(total_steps: int = 8):
+    from metamorph_tpu_torch.config import (LlamaConfig, MetaMorphConfig,
+                                            MultimodalConfig, SiglipConfig,
+                                            TrainConfig)
+
+    lcfg = LlamaConfig(hidden_size=512, intermediate_size=1024, num_layers=2,
+                       num_heads=4, num_kv_heads=1, head_dim=128)
+    return MetaMorphConfig(
+        llama=lcfg, siglip=SiglipConfig.tiny(),
+        mm=MultimodalConfig(num_image_tokens=4),
+        train=TrainConfig(batch_size=1, max_seq_len=1024,
+                          max_images_per_batch=2, total_steps=total_steps,
+                          learning_rate=1e-4, remat_policy="save_attn_qkv"))
+
+
+def phase_train_reference(torch, dev):
+    """One train step of a small model, same weights: card (bf16, kernels)
+    vs CPU (fp32, plain versions)."""
+    import numpy as np
+
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.train import train_step as TS
+    from metamorph_tpu_torch.train.optimizer import make_optimizer
+    from metamorph_tpu_torch.train.profile_train import packed_row
+
+    cfg = small_train_cfg()
+    arrays = batch_to_arrays(packed_row(1024, 4, 2, seed=11))
+    pixels = np.random.default_rng(12).normal(size=(2, 28, 28, 3)).astype(
+        np.float32)
+    cpu = init_params(cfg, seed=3, device="cpu", dtype=torch.float32)
+    gpu = copy.deepcopy(cpu).to(device=dev, dtype=torch.bfloat16)
+    out = {}
+    for name, model, d in (("cpu", cpu, torch.device("cpu")),
+                           ("gpu", gpu, dev)):
+        state = TS.init_train_state(model, cfg)
+        tx = make_optimizer(cfg.train, model)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in arrays.items()}
+        _, m = TS.train_step(state, batch, torch.from_numpy(pixels).to(d),
+                             cfg, tx)
+        out[name] = ({k: float(v) for k, v in m.items()},
+                     {n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    (mc, gc_), (mg, gg) = out["cpu"], out["gpu"]
+    cos = {n: torch.nn.functional.cosine_similarity(
+        gc_[n].flatten(), gg[n].flatten(), dim=0).item() for n in gc_}
+    worst = min(cos, key=cos.get)
+    # the AR term is a cosine in [-1, 1]: its scale is 1, not its value
+    scale = {"loss": abs(mc["loss"]), "loss_language": abs(mc["loss_language"]),
+             "loss_image_ar": 1.0}
+    loss_err = {k: abs(mg[k] - mc[k]) / scale[k] for k in scale}
+    row = dict(T=1024, metrics_gpu=mg, metrics_cpu=mc, loss_rel_err=loss_err,
+               loss_tol=TRAIN_LOSS_RTOL, n_grads=len(cos),
+               min_grad_cosine=cos[worst], worst_grad=worst,
+               min_cos=TRAIN_MIN_GRAD_COS)
+    log("train reference (card bf16 kernels vs CPU fp32 plain)",
+        json.dumps(row))
+    if gg.keys() != gc_.keys() or len(cos) == 0:
+        raise AssertionError("card and CPU trained different tensors")
+    if max(loss_err.values()) > TRAIN_LOSS_RTOL or \
+            cos[worst] < TRAIN_MIN_GRAD_COS or mg["n_image_ar_tokens"] != 4:
+        raise AssertionError(f"train step on the card disagrees with the CPU "
+                             f"reference: {row}")
     return row
 
 
@@ -310,6 +483,167 @@ def phase_main(torch, dev):
     return row
 
 
+def phase_train_main(torch, dev):
+    """The stage-2 dual-loss train step at LLaMA-3.1-8B + SO400M width."""
+    from metamorph_tpu_torch.config import MetaMorphConfig
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.ops import flash_attention as fa
+    from metamorph_tpu_torch.train import train_step as TS
+    from metamorph_tpu_torch.train.optimizer import make_optimizer
+    from metamorph_tpu_torch.train.profile_train import (STAGE2, packed_row,
+                                                         stage2_one_card)
+
+    cfg, reduced = stage2_one_card(4096)
+    full = MetaMorphConfig.from_json(STAGE2.read_text()).train
+    for k, v in reduced.items():
+        log(f"train main: reduced train.{k} {getattr(full, k)} -> {v}")
+    T, K, N = cfg.train.max_seq_len, cfg.mm.num_image_tokens, \
+        cfg.train.max_images_per_batch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    state = TS.init_train_state(model, cfg)
+    tx = make_optimizer(cfg.train, model)
+    torch.cuda.synchronize()
+    log(f"train main: params + AdamW state {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             batch_to_arrays(packed_row(T, K, N, seed=21)).items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    s = cfg.siglip.image_size
+    pixels = torch.randn((N, s, s, 3), generator=gen, device=dev)
+    lm = model.llama
+    sampled = {"llama.layers.0.wq": lm.layers[0].wq,
+               "llama.layers.31.w_down": lm.layers[31].w_down,
+               "llama.final_norm": lm.final_norm,
+               "projector.layers.0.kernel": model.projector.layers[0].kernel,
+               "vision_head.layers.1.kernel":
+                   model.vision_head.layers[1].kernel}
+    before = {n: p.detach().clone() for n, p in sampled.items()}
+
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    for kern in kernels:
+        kern.launches = 0
+    steps, times = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = TS.train_step(state, batch, pixels, cfg, tx)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        steps.append(m)
+        log(f"train main: step {i + 1} {times[-1]:.3f}s", json.dumps(m))
+        if i == 0:
+            changed = [n for n, p in sampled.items()
+                       if not torch.equal(p, before[n])]
+            if changed:
+                raise AssertionError(f"step 1 runs at lr 0 but changed "
+                                     f"{changed}")
+    launches = {k.symbol: k.launches for k in kernels}
+    del before, sampled
+
+    for i, m in enumerate(steps):
+        if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                       m.values())):
+            raise AssertionError(f"step {i + 1}: non-finite metric {m}")
+        if m["n_image_ar_tokens"] != K or not m["grad_norm"] > 0:
+            raise AssertionError(f"step {i + 1}: {m}")
+    l1 = steps[0]["loss"]
+    if abs(steps[1]["loss"] - l1) > 1e-6 * abs(l1):
+        raise AssertionError(f"step 2 loss {steps[1]['loss']} != step 1 loss "
+                             f"{l1} on unchanged weights")
+    if not (steps[2]["loss"] < l1 and steps[3]["loss"] < l1):
+        raise AssertionError(f"losses did not fall below step 1: "
+                             f"{[m['loss'] for m in steps]}")
+    for kern in kernels:
+        if kern.launches <= 0:
+            raise AssertionError(f"kernel {kern.symbol} was not launched by "
+                                 f"the train main path")
+
+    lc = cfg.llama
+    n_dense = sum(p.numel() for p in lm.parameters()) - lm.embed.numel()
+    attn_flops = 6 * lc.num_layers * lc.num_heads * lc.head_dim * T * T
+    step_s = statistics.median(times[1:])
+    row = dict(T=T, K=K, image_slots=N, reduced=reduced,
+               step_s=times, step_s_median_2_4=step_s,
+               tokens_per_s=T / step_s,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               losses=[m["loss"] for m in steps],
+               grad_norms=[m["grad_norm"] for m in steps],
+               launches=launches, llm_dense_params=n_dense,
+               model_flop_share=(6 * n_dense * T + attn_flops) / step_s
+               / (PEAK_BF16_TFLOPS * 1e12))
+    log("train main path", json.dumps(row))
+    del state, model, batch, pixels
+    return row
+
+
+def phase_trainer(torch, dev):
+    """train() on the card at the 4b width: metrics.jsonl, saves with
+    pruning, and a resume."""
+    import dataclasses
+    import signal
+
+    from metamorph_tpu_torch.train.trainer import TrainerArgs, train
+
+    from metamorph_tpu_torch.train.profile_train import packed_row
+
+    cfg = small_train_cfg(total_steps=3)
+    packed = packed_row(1024, 4, 2, seed=31)
+
+    class Data:
+        def __init__(self):
+            self.state = {"step_in_epoch": 0}
+
+        def state_dict(self):
+            return dict(self.state)
+
+        def load_state_dict(self, s):
+            self.state = dict(s)
+
+        def __iter__(self):
+            import numpy as np
+
+            rng = np.random.default_rng(32)
+            while True:
+                self.state["step_in_epoch"] += 1
+                yield packed, rng.normal(size=(2, 28, 28, 3)).astype(
+                    np.float32)
+
+    with tempfile.TemporaryDirectory() as d:
+        args = TrainerArgs(output_dir=d, save_steps=2, save_total_limit=2)
+
+        def logged():
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                return [json.loads(l)["step"] for l in f]
+
+        out = train(cfg, args, Data())
+        first = (out["step"], logged(), sorted(os.listdir(d)))
+        cfg4 = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, total_steps=4))
+        out = train(cfg4, args, Data())
+        second = (out["step"], logged(), sorted(os.listdir(d)))
+    # PreemptionSaver's handlers: hand SIGTERM/SIGUSR1 back
+    for sig in (signal.SIGTERM, signal.SIGUSR1):
+        signal.signal(sig, signal.SIG_DFL)
+    row = dict(first_run=first, resumed_run=second,
+               loss=out["metrics"]["loss"])
+    log("train() loop", json.dumps(row))
+    if first != (3, [1, 2, 3], ["metrics.jsonl", "step_2", "step_3"]) or \
+            second != (4, [1, 2, 3, 4],
+                       ["metrics.jsonl", "step_3", "step_4"]):
+        raise AssertionError(f"train() loop: {row}")
+    return row
+
+
+def free_memory(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -339,17 +673,27 @@ def main() -> int:
             log("  ptxas:", line.strip())
 
     kernel_rows = phase_kernels(torch, dev)
+    bwd_rows = phase_bwd_kernels(torch, dev)
+    free_memory(torch)
     phase_reference(torch, dev)
+    phase_train_reference(torch, dev)
     main_row = phase_main(torch, dev)
+    free_memory(torch)
+    train_row = phase_train_main(torch, dev)
+    free_memory(torch)
+    phase_trainer(torch, dev)
 
     fl = kernel_rows["flash"][0]       # the main path's 2048-bucket shape
     de = kernel_rows["decode"][0]
+    bw = bwd_rows[0]                   # causal T=4096, the train main path
+    tl = train_row["launches"]
     summary = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "metamorph_tpu/ops/flash_attention.py:228, "
                      "metamorph_tpu/ops/flash_attention.py:287",
-         "launches": main_row["launches"]["flash_fwd"],
+         "launches": main_row["launches"]["flash_fwd"]
+                     + tl["mm_flash_fwd_bf16"],
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
          "ms": fl["ms"], "plain_ms": fl["plain_ms"]},
         {"name": "decode_attn", "route": "cuda",
@@ -358,6 +702,21 @@ def main() -> int:
          "launches": main_row["launches"]["decode_attn"],
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["decode"]),
          "ms": de["ms"], "plain_ms": de["plain_ms"]},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "metamorph_tpu/ops/flash_attention.py:499, "
+                     "metamorph_tpu/ops/flash_attention.py:698",
+         "launches": tl["mm_flash_bwd_dq_bf16"],
+         "max_abs_err": max(r["max_abs_err"]["dq"] for r in bwd_rows),
+         "ms": bw["ms_dq"], "plain_ms": bw["plain_ms"]},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "metamorph_tpu/ops/flash_attention.py:529, "
+                     "metamorph_tpu/ops/flash_attention.py:724",
+         "launches": tl["mm_flash_bwd_dkv_bf16"],
+         "max_abs_err": max(max(r["max_abs_err"]["dk"],
+                                r["max_abs_err"]["dv"]) for r in bwd_rows),
+         "ms": bw["ms_dkv"], "plain_ms": bw["plain_ms"]},
     ]}
     log(smi)
     log(json.dumps(summary))

@@ -1,8 +1,8 @@
 """Configuration dataclasses of the PyTorch package.
 
-Copies of the model sections of `metamorph_tpu/config.py` (LLaMA decoder,
-SigLIP tower, multimodal connector, and the top-level tree), with the dtype
-table mapped to torch dtypes. They are copied rather than imported because
+Copies of `metamorph_tpu/config.py` (LLaMA decoder, SigLIP tower,
+multimodal connector, mesh, training, and the top-level tree), with the
+dtype table mapped to torch dtypes. They are copied rather than imported because
 importing anything under `metamorph_tpu` imports JAX, which the PyTorch
 package must not need. Field names and defaults are the same, so a config
 JSON written by either package loads in the other.
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -124,14 +124,73 @@ class MultimodalConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh axes. fsdp ~ ZeRO-3, pure data ~ DDP, tensor = megatron-style
+    TP. The port runs on one device: `device_count` must resolve to 1."""
+
+    data: int = 1
+    fsdp: int = -1   # -1: all remaining devices
+    tensor: int = 1
+    axis_names: Tuple[str, str, str] = ("data", "fsdp", "tensor")
+
+    def device_count(self, available: int) -> int:
+        """Devices this mesh spans on `available` devices (an axis of -1
+        absorbs the rest), as `metamorph_tpu/parallel/mesh.py:build_mesh`
+        resolves it."""
+        sizes = [self.data, self.fsdp, self.tensor]
+        fixed = 1
+        for s in sizes:
+            if s != -1:
+                fixed *= s
+        if sizes.count(-1) > 1:
+            raise ValueError("at most one mesh axis may be -1")
+        return fixed * (available // fixed if -1 in sizes else 1)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-5
+    mm_projector_lr: Optional[float] = None   # per-group LR
+    vision_tower_lr: Optional[float] = None
+    weight_decay: float = 0.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    warmup_ratio: float = 0.03
+    lr_schedule: str = "cosine"
+    total_steps: int = 1000
+    grad_clip_norm: float = 1.0
+    grad_accum_steps: int = 1
+    seed: int = 42
+    batch_size: int = 8             # global batch
+    max_seq_len: int = 4096
+    max_images_per_batch: int = 8   # static image-slot budget per global batch
+    remat: bool = True              # gradient checkpointing on decoder blocks
+    # what a checkpointed block keeps: see models/llama.py llama_forward
+    remat_policy: str = "dots_no_batch"
+    # sequence-chunk width of the checkpointed cross-entropy loop (the fp32
+    # [B, chunk, 128k] logits block is the live-memory knob)
+    ce_chunk: int = 512
+    # trainable sets of the 2-stage recipe: stage 1 (connector pretrain)
+    # tune_mm_mlp_adapter=True; stage 2 everything but (optionally) the tower
+    tune_mm_mlp_adapter: bool = False
+    freeze_backbone: bool = False
+    lora_enable: bool = False
+    offload_optimizer: bool = False
+    sequence_parallel: bool = False
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
 class MetaMorphConfig:
-    """Top-level config of the model. The JAX package's tree also carries
-    mesh and training sections; serving reads neither, so `from_dict`
-    accepts and ignores them."""
+    """Top-level config: model sections, mesh and training."""
 
     llama: LlamaConfig = field(default_factory=LlamaConfig)
     siglip: SiglipConfig = field(default_factory=SiglipConfig)
     mm: MultimodalConfig = field(default_factory=MultimodalConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     @staticmethod
     def tiny() -> "MetaMorphConfig":
@@ -139,6 +198,8 @@ class MetaMorphConfig:
             llama=LlamaConfig.tiny(),
             siglip=SiglipConfig.tiny(),
             mm=MultimodalConfig(num_image_tokens=4),
+            train=TrainConfig(max_seq_len=128, batch_size=2,
+                              max_images_per_batch=4),
         )
 
     def to_dict(self) -> dict:
@@ -146,6 +207,12 @@ class MetaMorphConfig:
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2)
+
+    def with_num_image_tokens(self, k: int) -> "MetaMorphConfig":
+        """Config variant with another per-image token count (multi-res
+        buckets; the weights do not depend on it)."""
+        return dataclasses.replace(
+            self, mm=dataclasses.replace(self.mm, num_image_tokens=k))
 
     @staticmethod
     def from_dict(d: dict) -> "MetaMorphConfig":
@@ -161,6 +228,9 @@ class MetaMorphConfig:
             siglip=SiglipConfig(**d.get("siglip", {})),
             mm=MultimodalConfig(**{k: detuple(v)
                                    for k, v in d.get("mm", {}).items()}),
+            mesh=MeshConfig(**{k: detuple(v)
+                               for k, v in d.get("mesh", {}).items()}),
+            train=TrainConfig(**d.get("train", {})),
         )
 
     @staticmethod

@@ -5,6 +5,9 @@
 gives it) across: the [L, ...]-stacked layer weights become per-layer
 module parameters, with every dense weight kept [D_in, D_out].
 
+`to_jax_params` is the inverse: the module's weights as the JAX tree of
+numpy arrays, so tests compare parameters leaf by leaf.
+
 `init_params` makes random weights on the device from a seed, at the scales
 the JAX initializers use (normal * fan_in**-0.5 for the LLaMA and SigLIP
 dense weights, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the projector and
@@ -87,6 +90,60 @@ def from_jax_params(tree: Mapping[str, Any], cfg: MetaMorphConfig,
             put(dense.kernel, sub[f"w{i}"]["kernel"])
             put(dense.bias, sub[f"w{i}"]["bias"])
     return model
+
+
+@torch.no_grad()
+def to_jax_params(model: MetaMorph) -> dict:
+    """MetaMorph module -> JAX parameter tree of fp32 numpy arrays, with
+    the per-layer weights stacked on a leading [L] axis."""
+
+    def a(p: torch.Tensor) -> np.ndarray:
+        return p.detach().float().cpu().numpy()
+
+    def stack(layers, name: str) -> np.ndarray:
+        return np.stack([a(getattr(layer, name)) for layer in layers])
+
+    lm = model.llama
+    ll = lm.layers
+    llama = {
+        "embed": {"embedding": a(lm.embed)},
+        "layers": {
+            "attn": {n: stack(ll, n) for n in ("wq", "wk", "wv", "wo")},
+            "mlp": {n: stack(ll, n) for n in ("w_gate", "w_up", "w_down")},
+            "input_norm": {"scale": stack(ll, "input_norm")},
+            "post_attn_norm": {"scale": stack(ll, "post_attn_norm")},
+        },
+        "final_norm": {"scale": a(lm.final_norm)},
+    }
+    if lm.lm_head is not None:
+        llama["lm_head"] = {"kernel": a(lm.lm_head)}
+    sm = model.siglip
+    sl = sm.layers
+    siglip = {
+        "patch_embed": {"kernel": a(sm.patch_kernel),
+                        "bias": a(sm.patch_bias)},
+        "pos_embed": a(sm.pos_embed),
+        "layers": {
+            "ln1": {"scale": stack(sl, "ln1_scale"),
+                    "bias": stack(sl, "ln1_bias")},
+            "ln2": {"scale": stack(sl, "ln2_scale"),
+                    "bias": stack(sl, "ln2_bias")},
+            "attn": {n: {"kernel": stack(sl, n), "bias": stack(sl, "b" + n[1])}
+                     for n in ("wq", "wk", "wv", "wo")},
+            "mlp": {n: {"kernel": stack(sl, n), "bias": stack(sl, n + "_bias")}
+                    for n in ("fc1", "fc2")},
+        },
+        "final_ln": {"scale": a(sm.final_ln_scale),
+                     "bias": a(sm.final_ln_bias)},
+    }
+
+    def dense_stack(stack_mod) -> dict:
+        return {f"w{i}": {"kernel": a(d.kernel), "bias": a(d.bias)}
+                for i, d in enumerate(stack_mod.layers)}
+
+    return {"llama": llama, "siglip": siglip,
+            "projector": dense_stack(model.projector),
+            "vision_head": dense_stack(model.vision_head)}
 
 
 @torch.no_grad()

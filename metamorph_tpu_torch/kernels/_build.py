@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels.
 
-`metamorph_tpu_torch/csrc/*.cu` compile with nvcc into one shared library
-with a plain C interface, which loads through ctypes. The library lands in
+`metamorph_tpu_torch/csrc/*.cu` compile with nvcc, one process per source,
+all started together, and link into one shared library with a plain C
+interface, which loads through ctypes. The library lands in
 `metamorph_tpu_torch/build/` (listed in .gitignore) under a name keyed by a
 hash of the sources and flags, so a changed source rebuilds and an
 unchanged one is reused. Nothing here runs at import: the first kernel
@@ -27,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -56,7 +57,7 @@ def library_path() -> Path:
 class _Library:
     """The loaded shared library, built on first use. `build_seconds` is
     the nvcc wall time of this process's build (0.0 when a build from an
-    earlier process was reused); `ptxas_log` holds nvcc's stderr."""
+    earlier process was reused); `ptxas_log` holds nvcc's output."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -72,15 +73,29 @@ class _Library:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), *map(str, sources())]
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                   str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            failed = [link.returncode] if link.returncode != 0 else []
         self.build_seconds = time.perf_counter() - t0
-        self.ptxas_log = res.stderr
-        if res.returncode != 0:
+        self.ptxas_log = "\n".join(logs)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+            raise RuntimeError(f"nvcc failed ({failed}):\n{self.ptxas_log}")
         os.replace(tmp, out)
         return out
 

@@ -5,21 +5,27 @@ JAX package's [L, ...]-stacked tree — and keep the JAX layout: dense weights
 are [D_in, D_out] and apply as `x @ w`. The functions mirror the JAX ones
 and take the module where those take the parameter tree.
 
-Attention goes through the flash forward (`ops/flash_attention.py`) for full
-sequences and through decode attention (`ops/decode_attention.py`) for
-single-token steps; each runs its CUDA kernel on the card and its plain
-version on the CPU. The layer loop is a Python loop; the KV cache
-[L, B, KV, S, Dh] is updated in place (`index_put_`), with no host sync.
+Attention goes through flash attention (`ops/flash_attention.py`, a
+differentiable `torch.autograd.Function` when the weights require grad) for
+full sequences and through decode attention (`ops/decode_attention.py`) for
+single-token steps; each runs its CUDA kernels on the card and its plain
+version on the CPU. The layer loop is a Python loop; training checkpoints
+each layer with `torch.utils.checkpoint` under the JAX package's remat
+policies. The KV cache [L, B, KV, S, Dh] is updated in place
+(`index_put_`), with no host sync.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from metamorph_tpu_torch.config import LlamaConfig
 from metamorph_tpu_torch.ops.decode_attention import decode_attention
@@ -27,8 +33,7 @@ from metamorph_tpu_torch.ops.flash_attention import flash_attention
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class LlamaLayer(nn.Module):
@@ -155,6 +160,64 @@ def embed_tokens(model: Llama, ids: torch.Tensor) -> torch.Tensor:
     return F.embedding(ids.long(), model.embed)
 
 
+def _pre_attn(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin):
+    return _qkv(layer, cfg, rms_norm(x, layer.input_norm, cfg.rms_norm_eps),
+                cos, sin)
+
+
+def _post_attn(layer: LlamaLayer, cfg: LlamaConfig, x, attn):
+    B, T, _ = x.shape
+    x = x + attn.reshape(B, T, -1) @ layer.wo
+    h = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
+    return x + _mlp_block(layer, h)
+
+
+def _layer_save_attn(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin,
+                     attn_mask):
+    """One layer as two checkpointed segments around the flash call: the
+    flash Function keeps its residuals (post-rope q/k/v and o, lse), so the
+    backward recomputes the norms, projections and MLP but never attention."""
+    q, k, v = checkpoint(_pre_attn, layer, cfg, x, cos, sin,
+                         use_reentrant=False)
+    attn = flash_attention(q, k, v, attn_mask=attn_mask, causal=True)
+    return checkpoint(_post_attn, layer, cfg, x, attn, use_reentrant=False)
+
+
+# remat_policy -> what a checkpointed layer keeps (the JAX package's
+# jax.checkpoint_policies, `metamorph_tpu/models/llama.py:225-256`):
+#   "nothing": nothing, the whole layer is recomputed;
+#   "dots_no_batch" / "dots": the matmul outputs (aten.mm; "dots" also
+#     batched ones), so the backward re-runs the elementwise ops and the
+#     flash forward;
+#   "save_attn_only" / "save_attn_qkv" / "dots_no_batch_save_attn": the
+#     flash call's residuals (see `_layer_save_attn`). The flash Function
+#     saves the post-rope q/k/v it needs for its backward in any case, so
+#     these three keep the same tensors here.
+# A policy changes memory and time, never the numbers.
+_SAVE_OPS = {
+    "nothing": [],
+    "dots_no_batch": [torch.ops.aten.mm.default],
+    "dots": [torch.ops.aten.mm.default, torch.ops.aten.bmm.default],
+}
+REMAT_POLICIES = (*_SAVE_OPS, "save_attn_only", "save_attn_qkv",
+                  "dots_no_batch_save_attn")
+
+
+def _layer(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin, attn_mask,
+           remat: bool, remat_policy: str):
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    if not remat:
+        return _decoder_layer(layer, cfg, x, cos, sin, attn_mask)[0]
+    if remat_policy in _SAVE_OPS:
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _SAVE_OPS[remat_policy])
+        return checkpoint(lambda x: _decoder_layer(
+            layer, cfg, x, cos, sin, attn_mask)[0], x, use_reentrant=False,
+            context_fn=ctx)
+    return _layer_save_attn(layer, cfg, x, cos, sin, attn_mask)
+
+
 def _forward(model: Llama, cfg: LlamaConfig, inputs_embeds, positions,
              attn_mask, on_kv=None):
     cos, sin = rope_tables(cfg, positions)
@@ -169,13 +232,21 @@ def _forward(model: Llama, cfg: LlamaConfig, inputs_embeds, positions,
 def llama_forward(model: Llama, cfg: LlamaConfig,
                   inputs_embeds: torch.Tensor,      # [B, T, D]
                   positions: torch.Tensor,          # [B, T] int
-                  attn_mask: Optional[torch.Tensor]  # [B, T] 1 = valid
-                  ) -> torch.Tensor:
-    """Full-sequence forward (no remat: inference only). Returns final-norm
-    hidden states [B, T, D]. `attn_mask` must be right-padded (it becomes
-    per-row lengths); None means every key is valid. `prefill` is the form
-    that also fills a KV cache."""
-    return _forward(model, cfg, inputs_embeds, positions, attn_mask)
+                  attn_mask: Optional[torch.Tensor],  # [B, T] 1 = valid
+                  remat: bool = False,
+                  remat_policy: str = "dots_no_batch") -> torch.Tensor:
+    """Full-sequence forward. Returns final-norm hidden states [B, T, D].
+    `attn_mask` must be right-padded (it becomes per-row lengths); None
+    means every key is valid, which is what training passes (as the JAX
+    flash path does: padding sits after every valid query, so causality
+    alone keeps it out). With `remat`, each layer is checkpointed under
+    `remat_policy` (see REMAT_POLICIES). `prefill` is the form that also
+    fills a KV cache."""
+    cos, sin = rope_tables(cfg, positions)
+    x = inputs_embeds
+    for layer in model.layers:
+        x = _layer(layer, cfg, x, cos, sin, attn_mask, remat, remat_policy)
+    return rms_norm(x, model.final_norm, cfg.rms_norm_eps)
 
 
 def lm_head(model: Llama, cfg: LlamaConfig, hidden: torch.Tensor

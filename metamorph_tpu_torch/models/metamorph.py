@@ -1,6 +1,16 @@
 """The MetaMorph model (counterpart of `metamorph_tpu/models/metamorph.py`):
-the modules of the four parts, image encoding, the vision head, and the
-image-token splice. The training losses are not ported yet."""
+the modules of the four parts, image encoding, the vision head, the
+image-token splice, and the training forward with its dual loss.
+
+Loss semantics (those of the JAX `metamorph_forward`):
+  * text CE on shifted labels, mean over non-IGNORE positions, over
+    sequence chunks whose fp32 logits are recomputed in the backward;
+  * image-AR loss on answer-image positions only, teacher-forced (hidden at
+    t-1 predicts image token t), pred = vision_head(hidden) [+ L2-normalize
+    or softmax/0.07], target = detached vision-tower features;
+  * total = CE + vision_coef * AR; the AR term is 0 when the batch has no
+    answer-image token (guarded mean).
+"""
 
 from __future__ import annotations
 
@@ -8,8 +18,10 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from metamorph_tpu_torch.config import MetaMorphConfig
+from metamorph_tpu_torch.constants import IGNORE_INDEX
 from metamorph_tpu_torch.models import llama as llama_lib
 from metamorph_tpu_torch.models import projector as proj_lib
 from metamorph_tpu_torch.models import siglip as siglip_lib
@@ -57,7 +69,8 @@ class MetaMorph(nn.Module):
 
 def encode_images(model: MetaMorph, cfg: MetaMorphConfig,
                   pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """pixels [N,H,W,3] -> (projected [N,K,D_llm], targets [N,K,D_vis])."""
+    """pixels [N,H,W,3] -> (projected [N,K,D_llm] with grad to the
+    projector, targets [N,K,D_vis] detached)."""
     feats = siglip_lib.vision_tower_forward(model.siglip, cfg.siglip, cfg.mm,
                                             pixels)
     projected = proj_lib.apply_stack(model.projector, _proj_acts(cfg), feats)
@@ -100,3 +113,86 @@ def fuse_embeddings(model: MetaMorph, cfg: MetaMorphConfig,
     gathered = img_flat[batch["img_gather_idx"].long()]
     return torch.where(batch["is_image"].bool()[..., None],
                        gathered.to(text_emb.dtype), text_emb)
+
+
+def _ce_chunk(llama: llama_lib.Llama, cfg: MetaMorphConfig, h, labels):
+    logits = llama_lib.lm_head(llama, cfg.llama, h)            # fp32
+    valid = labels != IGNORE_INDEX
+    safe = torch.where(valid, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    tok = logp.gather(-1, safe[..., None])[..., 0]
+    return -(tok * valid).sum(), valid.sum()
+
+
+def _chunked_ce(model: MetaMorph, cfg: MetaMorphConfig, hidden: torch.Tensor,
+                labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean CE over non-IGNORE labels, a loop over sequence chunks of
+    `chunk` rows, each checkpointed: the backward recomputes one
+    [B, chunk, V] fp32 logits block at a time, so the whole fp32 logits
+    tensor never exists."""
+    T = hidden.shape[1]
+    chunk = min(chunk, T)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for s in range(0, T, chunk):
+        t, c = checkpoint(_ce_chunk, model.llama, cfg, hidden[:, s:s + chunk],
+                          labels[:, s:s + chunk], use_reentrant=False)
+        total = total + t
+        count = count + c
+    return total / count.clamp_min(1)
+
+
+def metamorph_forward(model: MetaMorph, cfg: MetaMorphConfig,
+                      batch: Dict[str, torch.Tensor], pixels: torch.Tensor,
+                      remat: bool = False,
+                      remat_policy: str = "dots_no_batch"
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training forward: fused multimodal sequence -> (total_loss, metrics).
+    `batch` holds the packer's [B,T] tensors (`batch_to_arrays`) on the
+    model's device; pixels [N,H,W,3]."""
+    projected, targets = encode_images(model, cfg, pixels)
+    embeds = fuse_embeddings(model, cfg, batch, projected)
+    # no key mask: right padding sits after every valid query, so causality
+    # alone keeps it out (the JAX flash path passes none either)
+    hidden = llama_lib.llama_forward(
+        model.llama, cfg.llama, embeds, batch["position_ids"], None,
+        remat=remat, remat_policy=remat_policy)
+
+    labels = batch["labels"]
+    loss_language = _chunked_ce(model, cfg, hidden[:, :-1], labels[:, 1:],
+                                chunk=cfg.train.ce_chunk)
+    n_valid = (labels[:, 1:] != IGNORE_INDEX).sum().clamp_min(1)
+
+    # image-AR loss on the [B,T] layout: targets gathered with the fusion's
+    # plan, the vision head run on every position and weighted by the
+    # answer-image mask
+    N, K, Dv = targets.shape
+    tgt_flat = torch.cat([targets.reshape(N * K, Dv).float(),
+                          targets.new_zeros((1, Dv), dtype=torch.float32)])
+    tgt = tgt_flat[batch["img_gather_idx"].long()]                # [B,T,Dv]
+    # teacher forcing: hidden at t-1 predicts image token t
+    h_prev = torch.cat([torch.zeros_like(hidden[:, :1]), hidden[:, :-1]],
+                       dim=1)
+    pred = apply_vision_head(model, cfg, h_prev)                  # fp32
+    w = batch["image_ar_mask"].float()
+    n_ar = w.sum().clamp_min(1.0)
+    if cfg.mm.apply_softmax:
+        per_tok = -(tgt * torch.log(pred + 1e-10)).sum(-1)
+    elif cfg.mm.normalize_vision:
+        tgt_n = tgt / tgt.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        per_tok = -(pred * tgt_n).sum(-1)      # pred is already unit-norm
+    else:
+        per_tok = (tgt - pred).abs().mean(-1)
+    loss_image_ar = (per_tok * w).sum() / n_ar
+
+    total = loss_language
+    if cfg.mm.use_vision_ar:
+        total = total + cfg.mm.vision_coef * loss_image_ar
+    metrics = {
+        "loss": total.detach(),
+        "loss_language": loss_language.detach(),
+        "loss_image_ar": loss_image_ar.detach(),
+        "n_text_tokens": n_valid.float(),
+        "n_image_ar_tokens": w.sum(),
+    }
+    return total, metrics

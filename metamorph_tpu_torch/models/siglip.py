@@ -130,8 +130,14 @@ def vision_tower_forward(model: Siglip, cfg: SiglipConfig,
                          mm: MultimodalConfig, pixels: torch.Tensor
                          ) -> torch.Tensor:
     """ViT encode -> token reduction -> optional L2-normalize. Returns
-    [N, num_image_tokens, D] in SigLIP feature space."""
-    feats = reduce_tokens(siglip_encode(model, cfg, pixels), mm)
+    [N, num_image_tokens, D] in SigLIP feature space. With
+    `mm.freeze_vision` the encoder output is detached before the token
+    reduction, so the tower gets no gradient even when its weights are
+    trainable (as `jax.lax.stop_gradient` does in the JAX package)."""
+    feats = siglip_encode(model, cfg, pixels)
+    if mm.freeze_vision:
+        feats = feats.detach()
+    feats = reduce_tokens(feats, mm)
     if mm.normalize_vision:
         f32 = feats.float()
         feats = (f32 / f32.norm(dim=-1, keepdim=True).clamp_min(1e-12)

@@ -1,0 +1,189 @@
+"""Training orchestration: the `train()` entry point (counterpart of
+`metamorph_tpu/train/trainer.py`) on one device.
+
+config -> params (random from a seed) -> train state -> loop with gradient
+accumulation, per-step metrics, checkpoint saves and auto-resume. The port
+runs eagerly, so a batch with another per-image token count K (multi-res
+buckets) just runs with the matching config variant; nothing recompiles.
+
+Not ported yet, and refused with NotImplementedError: HF weight import and
+the stage-1 adapter merge (loader slice), LoRA, the optimizer offload,
+sequence parallelism and ring attention, multi-host and any mesh of more
+than one device (multi-GPU slice), W&B logging.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from metamorph_tpu_torch.config import MetaMorphConfig, resolve_dtype
+from metamorph_tpu_torch.convert import init_params
+from metamorph_tpu_torch.multimodal.packing import PackedBatch, batch_to_arrays
+from metamorph_tpu_torch.train import checkpoint as ckpt_lib
+from metamorph_tpu_torch.train.optimizer import make_optimizer
+from metamorph_tpu_torch.train.prefetch import Prefetcher
+from metamorph_tpu_torch.train.train_step import (accum_train_step,
+                                                  init_train_state, train_step)
+from metamorph_tpu_torch.utils.logging import MetricsLogger, rank0_print
+
+
+@dataclass
+class TrainerArgs:
+    output_dir: str = "./out"
+    save_steps: int = 500
+    save_total_limit: int = 1
+    logging_steps: int = 1
+    resume: bool = True
+    pretrain_mm_mlp_adapter: Optional[str] = None
+    hf_llama_path: Optional[str] = None
+    hf_siglip_path: Optional[str] = None
+    use_wandb: bool = False
+    # "flash" and "xla" run the same code: the port's attention is the
+    # flash Function (its kernels on the card, its plain version on the CPU)
+    attn_impl: str = "flash"
+
+
+def _not_ported(what: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to the PyTorch package "
+                               f"yet (the {slice_} slice)")
+
+
+def _check_supported(cfg: MetaMorphConfig, args: TrainerArgs,
+                     multihost: bool, n_devices: int) -> None:
+    if args.hf_llama_path or args.hf_siglip_path:
+        raise _not_ported("HF weight import", "loader")
+    if args.pretrain_mm_mlp_adapter:
+        raise _not_ported("pretrain_mm_mlp_adapter", "loader")
+    if cfg.train.lora_enable:
+        raise _not_ported("lora_enable", "LoRA")
+    if cfg.train.offload_optimizer:
+        raise _not_ported("offload_optimizer", "multi-GPU")
+    if cfg.train.sequence_parallel or args.attn_impl == "ring":
+        raise _not_ported("sequence parallelism / ring attention",
+                          "multi-GPU")
+    if args.attn_impl not in ("flash", "xla"):
+        raise ValueError(f"unknown attn_impl {args.attn_impl!r}")
+    if multihost:
+        raise _not_ported("multihost training", "multi-GPU")
+    if cfg.mesh.device_count(n_devices) != 1:
+        raise _not_ported(f"a mesh over {cfg.mesh.device_count(n_devices)} "
+                          f"devices ({cfg.mesh})", "multi-GPU")
+
+
+def build_params(cfg: MetaMorphConfig, args: TrainerArgs, seed: int = 0,
+                 device=None):
+    """Random weights from `seed` in the config's parameter dtype."""
+    return init_params(cfg, seed=seed, device=device,
+                       dtype=resolve_dtype(cfg.train.param_dtype))
+
+
+def _to_device(arrays: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrays.items()}
+
+
+def train(cfg: MetaMorphConfig, args: TrainerArgs,
+          data_iter: Iterable, multihost: bool = False) -> Dict[str, Any]:
+    """data_iter yields (PackedBatch | dict-of-arrays, pixels [N,S,S,3])."""
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
+    _check_supported(cfg, args, multihost, n_devices)
+    rank0_print(f"device: {device}")
+
+    model = build_params(cfg, args, device=device)
+    state = init_train_state(model, cfg)
+    tx = make_optimizer(cfg.train, model)
+
+    # ---- auto-resume ----
+    start_step = 0
+    data_state = None
+    latest = ckpt_lib.latest_checkpoint(args.output_dir) if args.resume else None
+    if latest:
+        rank0_print(f"resuming from {latest}")
+        state = ckpt_lib.restore_train_state(latest, state)
+        meta = ckpt_lib.restore_meta(latest)
+        start_step = meta["step"]
+        data_state = meta.get("data_state")
+    if data_state and hasattr(data_iter, "load_state_dict"):
+        data_iter.load_state_dict(data_state)
+
+    preempt = ckpt_lib.PreemptionSaver()
+    os.makedirs(args.output_dir, exist_ok=True)
+    metrics_log = MetricsLogger(
+        log_path=os.path.join(args.output_dir, "metrics.jsonl"),
+        use_wandb=args.use_wandb)
+    tokens_per_step = cfg.train.batch_size * cfg.train.max_seq_len
+
+    # each item carries the iterator state at production time, so resume
+    # replays from the right position even with batches in flight
+    def _with_state(item):
+        ds = data_iter.state_dict() if hasattr(data_iter, "state_dict") else None
+        return item, ds
+
+    it = Prefetcher(iter(data_iter), depth=2, transform=_with_state)
+    consumed_data_state = [None]
+
+    def save(step):
+        ckpt_lib.save_train_state(args.output_dir, step, state, cfg.to_json(),
+                                  consumed_data_state[0])
+        ckpt_lib.prune_checkpoints(args.output_dir, args.save_total_limit)
+
+    step = start_step
+    last_metrics = {}
+    try:
+        accum = cfg.train.grad_accum_steps
+        while step < cfg.train.total_steps:
+            micro, micro_K = [], []
+            for _ in range(accum):
+                (packed, pixels), ds = next(it)
+                consumed_data_state[0] = ds
+                if isinstance(packed, PackedBatch):
+                    b = batch_to_arrays(packed)
+                    micro_K.append(packed.ar_valid.shape[0]
+                                   // packed.image_slot_used.shape[0])
+                else:
+                    b = dict(packed)
+                    micro_K.append(cfg.mm.num_image_tokens)
+                micro.append((b, np.asarray(pixels)))
+            K = micro_K[0]
+            if any(k != K for k in micro_K):
+                # multi-res buckets must be constant within one optimizer
+                # step; mixed K would stack incompatible packed shapes
+                raise ValueError(
+                    f"grad-accum group has mixed num_image_tokens {micro_K}; "
+                    f"construct DataIterator with accum_steps={accum}")
+            step_cfg = (cfg if K == cfg.mm.num_image_tokens
+                        else cfg.with_num_image_tokens(K))
+            if accum > 1:
+                batch = _to_device({k: np.stack([m[0][k] for m in micro])
+                                    for k in micro[0][0]}, device)
+                pixels = torch.from_numpy(
+                    np.stack([m[1] for m in micro])).to(device)
+                state, m = accum_train_step(state, batch, pixels, step_cfg,
+                                            tx)
+            else:
+                batch = _to_device(micro[0][0], device)
+                pixels = torch.from_numpy(micro[0][1]).to(device)
+                state, m = train_step(state, batch, pixels, step_cfg, tx)
+            step += 1
+            if step % args.logging_steps == 0:
+                m = {k: float(v) for k, v in m.items()}
+                last_metrics = metrics_log.log(step, m, tokens_per_step, 1)
+                rank0_print(f"step {step}: loss={m['loss']:.4f} "
+                            f"(lang={m['loss_language']:.4f} "
+                            f"img_ar={m['loss_image_ar']:.4f})")
+            if step % args.save_steps == 0 or preempt.should_save():
+                save(step)
+                if preempt.should_save():
+                    rank0_print("preemption save complete; exiting")
+                    break
+    finally:
+        metrics_log.close()
+
+    save(step)
+    return {"state": state, "step": step, "metrics": last_metrics}

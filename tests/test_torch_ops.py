@@ -1,17 +1,23 @@
 """PyTorch port, attention ops: the plain versions behind the kernel
 wrappers (what CPU tensors run) against the JAX package's Pallas kernels in
-interpret mode, plus the wrappers' routing and the package's JAX-free
-imports.
+interpret mode — forward, and the backward through the port's autograd
+Function against `jax.grad` through the JAX custom VJP — plus the
+wrappers' routing and the package's JAX-free imports.
 
 Tolerances: both sides compute in fp32 on the CPU; they differ only in the
 order of the fp32 sums (the Pallas kernels stream key blocks with an online
 softmax, the port's plain versions take one softmax over all keys), so
-2e-5 absolute/relative, the JAX package's own kernel-vs-XLA tolerance."""
+2e-5 absolute/relative, the JAX package's own kernel-vs-XLA tolerance, on
+outputs; gradients are sums over up to 512 keys of such terms, so 1e-4
+(the JAX package holds its backward to 2e-4 against XLA). The plain
+backward against autograd through the plain forward: 1e-5 (the same fp32
+products, another association)."""
 
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,14 +187,124 @@ def test_decode_unstacked_cache_and_empty_window():
                             layer=0)
 
 
+def _grads_port(q, k, v, loss):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    loss(qt, kt, vt).backward()
+    return qt.grad.numpy(), kt.grad.numpy(), vt.grad.numpy()
+
+
+def _masked_sq(o, mask):
+    return (o * o * mask[:, :, None, None]).sum()
+
+
+@pytest.mark.parametrize("grid,T,lens,bwd_blocks,wide", [
+    ("rect", 256, (200,), None, None),       # T=256 ragged: K4 (`_bwd`)
+    ("tri", 512, (300, 512), (128, 128), None),   # K3 square (`_bwd_tri`)
+    ("tri_rect", 512, (300, 512), (64, 64), "256"),
+], ids=["K4", "K3", "K3-wide"])
+def test_flash_backward_matches_jax_kernels(monkeypatch, grid, T, lens,
+                                            bwd_blocks, wide):
+    """jax.grad through the JAX flash custom VJP (Pallas backward kernels in
+    interpret mode) against autograd through the port's Function, on the
+    three grids and losses of tests/test_flash_attention.py:77-151."""
+    if wide:
+        monkeypatch.setenv("FLASH_TRI_BLOCK_BWD_WIDE", wide)
+    B, H, KV, Dh = len(lens), 4, 2, 64
+    seed = {"rect": 6, "tri": 9, "tri_rect": 20}[grid]
+    q, k, v = (_np((B, T, H, Dh), seed), _np((B, T, KV, Dh), seed + 1),
+               _np((B, T, KV, Dh), seed + 2))
+    mask = _mask(B, T, lens)
+    kw = {} if bwd_blocks is None else dict(block_q_bwd=bwd_blocks[0],
+                                            block_k_bwd=bwd_blocks[1])
+    jm = jnp.asarray(mask)
+
+    def jloss(q, k, v):
+        o = jax_flash(q, k, v, attn_mask=jm, causal=True, **kw)
+        return jnp.sum(o * o * jm[:, :, None, None])
+
+    ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tm = torch.from_numpy(mask).float()
+    got = _grads_port(q, k, v, lambda q, k, v: _masked_sq(
+        fa.flash_attention(q, k, v, attn_mask=torch.from_numpy(mask)), tm))
+    for a, b, name in zip(got, ref, "qkv"):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("H,KV,lens", [
+    (4, 2, (192, 100)),            # GQA x2
+    (8, 2, (192, 0)),              # GQA x4, a row with no visible key
+], ids=["gqa2", "gqa4-empty-row"])
+def test_flash_with_lse_backward_matches_jax(H, KV, lens):
+    """Non-causal, T != S, with a loss on the logsumexp too: the lse
+    cotangent (K4's dlse term) through both packages."""
+    B, T, S, Dh = 2, 128, 192, 64
+    q, k, v = (_np((B, H, T, Dh), 30), _np((B, KV, S, Dh), 31),
+               _np((B, KV, S, Dh), 32))
+    w = _np((B, H, T), 33)
+    lengths = np.asarray(lens, np.int32)
+
+    def jloss(q, k, v):
+        o, lse = jax_flash_lse(q, k, v, jnp.asarray(lengths), causal=False,
+                               block_q=64, block_k=64, block_q_bwd=64,
+                               block_k_bwd=64)
+        # an empty row's lse is -1e30: weight only the finite ones
+        return jnp.sum(o * o) + jnp.sum(jnp.where(lse > -1e29, lse, 0) * w)
+
+    ref = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tw = torch.from_numpy(w)
+
+    def tloss(q, k, v):
+        o, lse = fa.flash_attention_with_lse(q, k, v,
+                                             torch.from_numpy(lengths),
+                                             causal=False)
+        return (o * o).sum() + (torch.where(lse > -1e29, lse, 0) * tw).sum()
+
+    got = _grads_port(q, k, v, tloss)
+    for a, b, name in zip(got, ref, "qkv"):
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+    if lens[1] == 0:
+        assert np.all(got[0][1] == 0) and np.all(got[1][1] == 0)
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,lens,causal", [
+    (2, 4, 2, 70, 70, (70, 33), True),
+    (2, 8, 2, 40, 90, (90, 0), False),
+    (1, 4, 4, 64, 64, (64,), True),
+])
+def test_flash_bwd_plain_matches_autograd(B, H, KV, T, S, lens, causal):
+    """`flash_attention_bwd_plain` (the backward the CPU path and the
+    kernels' checks use) against torch.autograd through
+    `flash_attention_plain`, with an lse cotangent."""
+    g = torch.Generator().manual_seed(B * T + S)
+    q = torch.randn(B, H, T, 32, generator=g, requires_grad=True)
+    k = torch.randn(B, KV, S, 32, generator=g, requires_grad=True)
+    v = torch.randn(B, KV, S, 32, generator=g, requires_grad=True)
+    do = torch.randn(B, H, T, 32, generator=g)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    o, lse = fa.flash_attention_plain(q, k, v, lengths, causal)
+    dlse = torch.randn(B, H, T, generator=g) * (lse > -1e29)
+    ref = torch.autograd.grad((o * do).sum() + (lse * dlse).sum(), (q, k, v))
+    got = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                       o.detach(), lse.detach(), do, dlse,
+                                       lengths, causal)
+    for a, b, name in zip(got, ref, "qkv"):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 def test_cpu_tensors_take_plain_path_and_count_no_launch():
     """CPU tensors run the plain versions and leave both launch counters
     at 0; a tensor on another device (meta) goes to the kernel route and is
     refused there with no launch."""
     a0, b0 = fa.FLASH_FWD.launches, da.DECODE_ATTN.launches
-    q = torch.randn(1, 16, 4, 64)
+    q = torch.randn(1, 16, 4, 64, requires_grad=True)
     k = torch.randn(1, 16, 2, 64)
-    fa.flash_attention(q, k, k)
+    fa.flash_attention(q, k, k).sum().backward()     # plain fwd + bwd
     fa.flash_attention_with_lse(q.transpose(1, 2), k.transpose(1, 2),
                                 k.transpose(1, 2))
     cache = torch.randn(2, 1, 2, 16, 64)
@@ -199,6 +315,7 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
         fa.flash_attention(meta, meta[:, :, :2], meta[:, :, :2])
     assert fa.FLASH_FWD.launches == a0 == 0
     assert da.DECODE_ATTN.launches == b0 == 0
+    assert fa.FLASH_BWD_DQ.launches == fa.FLASH_BWD_DKV.launches == 0
 
 
 def test_package_imports_without_jax():
@@ -219,4 +336,4 @@ def test_package_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 26
