@@ -10,16 +10,26 @@ Phases (any failure raises and the script exits nonzero):
                (fp32 math on the same bf16 inputs) at LLaMA-3.1-8B shapes
                (H=32, KV=8, Dh=128), with max-abs error, tolerance, and the
                median times of both from CUDA events;
-  4. reference — a 2-layer model at head dim 128 through prefill + decode on
-               the card (kernels) and on the CPU in fp32 (plain versions):
-               logits must agree;
   3b. backward kernels — kernels C (dq) and D (dk, dv) against the plain
                backward at 8B shapes, causal and not, ragged, with an lse
                cotangent and an empty row; bitwise equal on a second launch;
                median times of each kernel and of the plain backward;
+  3c. serving-option kernels — kernel B's int8 branch at B=8, S=4096 and
+               kernel E (chunk attention) in its verify form (B=8, C=4,
+               ragged offsets, S=4108) and its fill form (C=256), bf16 and
+               int8, with stale entries past each chunk, against their plain
+               versions;
+     Every kernel row carries its bound (the larger of bytes over 3.35 TB/s
+     and FLOPs over 989 TFLOP/s, from this run's shapes) and, where one
+     PyTorch call computes the same function, that call's time (SDPA; the
+     port never calls it);
   4. reference — a 2-layer model at head dim 128 through prefill + decode on
                the card (kernels) and on the CPU in fp32 (plain versions):
                logits must agree;
+  4c. options reference — phase 4's model through the verify chunk
+               (`decode_chunk_step_batched`) and the fused fill step
+               (`decode_step_with_chunk`) with a bf16 and an int8 cache: card
+               vs CPU logits must agree;
   4b. train reference — one train_step of a 2-layer model on one packed
                T=1024 row (text, a prompt image, an answer image) on the card
                (bf16, kernels) and on the CPU (fp32, plain): losses and
@@ -29,6 +39,12 @@ Phases (any failure raises and the script exits nonzero):
                8 slots, 4096-token cache) serving text requests (one long
                enough for the 2048 prefill bucket) and one image request
                encoded by the port's SigLIP tower; twice, with identical ids;
+  5d. serving options — the same model through ServeEngine(spec_k=4,
+               fill_chunk=256, max_fills=2), with the bf16 and the int8
+               cache: phase 5's requests plus two long prompts that stream
+               in through chunked fill while the slots decode; kernel E must
+               launch from the fill and the verify steps, kernel B in bf16
+               and int8;
   5b. train main path — configs/stage2_finetune.json (LLaMA-3.1-8B +
                SO400M, dual loss) cut to one card: 4 train steps on one packed
                4096-token row with a prompt and an answer image; step time,
@@ -64,12 +80,33 @@ FLASH_TOL_O = 2e-2      # bf16 output vs fp32 plain: half a bf16 step of |o|
 FLASH_TOL_LSE = 2e-3    # fp32 logsumexp; only the fp32 sum order differs
 DECODE_TOL = 2e-2       # bf16 output vs fp32 plain (P stays fp32 in kernel B)
 REF_MIN_COS = 0.999     # bf16 model on the card vs fp32 model on the CPU
+REF_MIN_COS_INT8 = 0.995  # int8 cache on both sides: the card quantizes bf16
+                          # K/V, the CPU fp32 K/V, so some entries round to
+                          # a neighbouring int8 step (1/254 of the row's amax)
 BWD_TOL = 3e-2          # kernels C/D: max|err| / max|ref| of dq, dk, dv; P and
                         # dS enter the tensor-core products in bf16 (relative
                         # 2**-9 each) and the outputs are bf16
 TRAIN_LOSS_RTOL = 2e-2  # bf16 train step on the card vs fp32 on the CPU
 TRAIN_MIN_GRAD_COS = 0.99
 PEAK_BF16_TFLOPS = 989.0   # H100 SXM dense bf16 (data sheet, 700 W)
+PEAK_HBM_TBS = 3.35        # H100 SXM HBM3 (data sheet)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes each read or written
+    once over the memory rate, or the FLOPs over the bf16 tensor rate,
+    whichever is larger."""
+    t_bytes = nbytes / (PEAK_HBM_TBS * 1e12) * 1e3
+    t_ops = flops / (PEAK_BF16_TFLOPS * 1e12) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def causal_pairs(T: int, lens) -> int:
+    """Visible (query, key) pairs of a causal T x T problem with per-row
+    key lengths: query i sees keys j <= i, j < len."""
+    return sum(sum(min(i + 1, n) for i in range(T)) for n in lens)
 
 
 def log(*a):
@@ -104,6 +141,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def phase_kernels(torch, dev):
+    import torch.nn.functional as F
+
     from metamorph_tpu_torch.ops import decode_attention as da
     from metamorph_tpu_torch.ops import flash_attention as fa
 
@@ -145,9 +184,19 @@ def phase_kernels(torch, dev):
         ms = cuda_ms(kern)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
             qt, kt, vt, lengths, causal))
+        pairs = (causal_pairs(T, lens) if causal else T * sum(lens))
+        b = bound(2 * (2 * B * T * H * Dh + 2 * B * S * KV * Dh)
+                  + 4 * B * H * T, 4 * Dh * H * pairs)
+        # the library's call for the same function: SDPA with GQA, causal
+        # or a boolean key mask
+        library_ms = None
+        if all(n == S for n in lens) and (T == S or not causal):
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
         row = dict(B=B, T=T, S=S, causal=causal, lengths=lens,
                    max_abs_err=err, tol=FLASH_TOL_O, lse_err=lse_err,
-                   lse_tol=FLASH_TOL_LSE, ms=ms, plain_ms=plain_ms)
+                   lse_tol=FLASH_TOL_LSE, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, **b)
         log("kernel A flash_fwd", json.dumps(row))
         if not (err <= FLASH_TOL_O and lse_err <= FLASH_TOL_LSE):
             raise AssertionError(f"flash kernel disagrees with plain: {row}")
@@ -182,9 +231,18 @@ def phase_kernels(torch, dev):
         ms = cuda_ms(kern)
         plain_ms = cuda_ms(lambda: da.decode_attention_plain(
             q, ck[layer], cv[layer], lengths, st))
+        lo = st if st is not None else torch.zeros_like(lengths)
+        window = int((lengths - lo).clamp_min(0).sum())
+        b = bound(window * KV * Dh * 2 * 2 + 2 * B * H * Dh * 2,
+                  4 * H * Dh * window)
+        pos = torch.arange(S, device=dev)
+        keymask = (pos[None] < lengths[:, None]) & (pos[None] >= lo[:, None])
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], ck[layer], cv[layer],
+            attn_mask=keymask[:, None, None], enable_gqa=True))
         row = dict(B=B, S=S, layer=layer, starts=st is not None,
                    lengths=lengths.tolist(), max_abs_err=err, tol=DECODE_TOL,
-                   ms=ms, plain_ms=plain_ms)
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
         log("kernel B decode_attn", json.dumps(row))
         if not err <= DECODE_TOL:
             raise AssertionError(f"decode kernel disagrees with plain: {row}")
@@ -197,6 +255,8 @@ def phase_kernels(torch, dev):
 def phase_bwd_kernels(torch, dev):
     """Kernels C and D against the plain backward at 8B attention shapes,
     in the model layout the train step gives them."""
+    import torch.nn.functional as F
+
     from metamorph_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev)
@@ -256,10 +316,28 @@ def phase_bwd_kernels(torch, dev):
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             qt, kt, vt, o, lse, dot, dlse, lengths, causal, scale), iters=5,
             warmup=1)
+        pairs = (causal_pairs(T, lens) if causal else T * sum(lens))
+        qkv_do = 2 * (2 * B * T * H * Dh + 2 * B * S * KV * Dh)
+        b_dq = bound(qkv_do + 8 * B * H * T + 2 * B * T * H * Dh,
+                     6 * Dh * H * pairs)
+        b_dkv = bound(qkv_do + 8 * B * H * T + 4 * B * S * KV * Dh,
+                      8 * Dh * H * pairs)
+        # the library's backward (dq, dk, dv together) for the same
+        # attention: SDPA with GQA; only where its forward needs no mask
+        library_ms = None
+        if all(n == S for n in lens) and T == S and not with_dlse:
+            ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            out = F.scaled_dot_product_attention(ql, kl, vl,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+            library_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (ql, kl, vl), dot, retain_graph=True), iters=5)
+            del ql, kl, vl, out
         row = dict(B=B, T=T, S=S, causal=causal, lengths=lens,
                    dlse=with_dlse, max_abs_err=err, rel_err=rel,
                    tol_rel=BWD_TOL, bitwise_repeat=repeat, ms_dq=ms_dq,
-                   ms_dkv=ms_dkv, plain_ms=plain_ms)
+                   ms_dkv=ms_dkv, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_dq=b_dq, bound_dkv=b_dkv)
         log("kernels C/D flash_bwd", json.dumps(row))
         if not (repeat and max(rel.values()) <= BWD_TOL):
             raise AssertionError(f"backward kernels disagree with plain or "
@@ -268,6 +346,150 @@ def phase_bwd_kernels(torch, dev):
             raise AssertionError("a row with no visible key got a gradient")
         rows.append(row)
         del q, k, v, do, o, lse, got, dq, dk, dv, delta, dd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_option_kernels(torch, dev, S: int = 4096):
+    """Kernel B's int8 branch and kernel E (both forms, both cache types)
+    at the serving options' main-path shapes (cache length S), against
+    their plain versions on the same inputs. Tolerance: DECODE_TOL of
+    max|ref| over each query row's head vector (bf16 output; the chunk
+    kernel also rounds P to bf16 for its PV product). Per row, because a
+    row that sees one key has |o| ~ 3 and one that sees 4,096 has ~0.05:
+    a bound scaled by the whole case would let the long rows be wrong."""
+    import torch.nn.functional as F
+
+    from metamorph_tpu_torch.ops import decode_attention as da
+    from metamorph_tpu_torch.ops.quant import quantize_kv
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(777)
+    H, KV, Dh, L = 32, 8, 128, 4
+    rows = {"decode_int8": [], "chunk": []}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def check(name, out, ref, row):
+        diff = (out.float() - ref).abs()
+        # each (query, head) row against its own magnitude; the floor only
+        # guards a row with no visible key, whose output is 0
+        rel = (diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-3)).max()
+        row.update(max_abs_err=diff.max().item(), max_rel_err=rel.item(),
+                   tol_rel=DECODE_TOL)
+        log(name, json.dumps(row))
+        if not (rel.item() <= DECODE_TOL and torch.isfinite(out).all()):
+            raise AssertionError(f"{name} disagrees with plain: {row}")
+
+    # kernel B int8: 8 full rows of a 4096-token cache (every key read),
+    # then ragged windows with starts
+    B, S_max = 8, S
+    ck, ks = quantize_kv(randn(L, B, KV, S, Dh))
+    cv, vs = quantize_kv(randn(L, B, KV, S, Dh))
+    q = randn(B, H, Dh).to(torch.bfloat16)
+    full = torch.full((B,), S, dtype=torch.int32, device=dev)
+    ragged = torch.tensor([1, 1024, 1025, 4096, 37, 2000, 3000, 513],
+                          dtype=torch.int32, device=dev).clamp(max=S)
+    starts = torch.tensor([0, 100, 1000, 0, 5, 1999, 64, 512],
+                          dtype=torch.int32, device=dev).clamp(max=S - 1)
+    for lengths, st in ((full, None), (ragged, starts)):
+        layer = 3
+        o = da.decode_attention(q, ck, cv, lengths, starts=st, layer=layer,
+                                k_scale=ks, v_scale=vs)
+        ref = da.decode_attention_plain(q.float(), ck[layer], cv[layer],
+                                        lengths, st, k_scale=ks[layer],
+                                        v_scale=vs[layer])
+        flip = [layer]
+
+        def kern():   # alternate layers: each launch finds its rows cold
+            flip[0] = 0 if flip[0] == layer else layer
+            da.decode_attention(q, ck, cv, lengths, starts=st, layer=flip[0],
+                                k_scale=ks, v_scale=vs)
+
+        lo = st if st is not None else torch.zeros_like(lengths)
+        window = int((lengths - lo).clamp_min(0).sum())
+        row = dict(B=B, S=S, starts=st is not None, window_keys=window,
+                   ms=cuda_ms(kern),
+                   plain_ms=cuda_ms(lambda: da.decode_attention_plain(
+                       q, ck[layer], cv[layer], lengths, st,
+                       k_scale=ks[layer], v_scale=vs[layer])),
+                   library_ms=None,
+                   **bound(window * KV * (2 * Dh + 8) + 4 * B * H * Dh,
+                           4 * H * Dh * window))
+        check("kernel B decode_attn_int8", o, ref, row)
+        rows["decode_int8"].append(row)
+    del ck, cv, ks, vs
+
+    # kernel E: (form, NB, C, S, offsets). Verify: S = 4096 + spec_k + 8,
+    # every row at its own offset; fill: one 256-token chunk of row 5.
+    cases = [("verify", 8, 4, S_max + 12,
+              [S_max - 4, 17, S_max // 4, S_max - 96, S_max * 5 // 8, 0,
+               S_max * 13 // 16, S_max // 7]),
+             ("fill", 1, 256, S_max, [S_max - 256]),
+             ("fill", 1, 256, S_max, [S_max // 4])]
+    for form, NB, C, S, offs in cases:
+        Bc = 8
+        k = randn(L, Bc, KV, S, Dh)
+        v = randn(L, Bc, KV, S, Dh)
+        rws = list(range(NB)) if form == "verify" else [5]
+        for r, off in zip(rws, offs):      # stale entries past each chunk
+            k[:, r, :, off + C:] = 30.0
+            v[:, r, :, off + C:] = -50.0
+        q = randn(NB, C, H, Dh).to(torch.bfloat16)
+        offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        r_t = torch.tensor(rws, dtype=torch.int32, device=dev)
+        last = offs_t.long()[:, None] + torch.arange(C, device=dev)
+        pairs = int((last + 1).clamp(max=S).sum())
+        kv_keys = int((offs_t.long() + C).clamp(max=S).sum())
+        layer = 2
+        for quant in (False, True):
+            if quant:
+                (kc, ksc), (vc, vsc) = quantize_kv(k), quantize_kv(v)
+            else:
+                kc, vc = k.to(torch.bfloat16), v.to(torch.bfloat16)
+                ksc = vsc = None
+            # rows and offsets as int32 device tensors, as the steps pass them
+            if form == "verify":
+                call = lambda l: da.chunk_attention_batched(
+                    q, kc, vc, offs_t, layer=l, k_scale=ksc, v_scale=vsc,
+                    rows=r_t)
+            else:
+                call = lambda l: da.chunk_attention(
+                    q[0], kc, vc, r_t, offs_t, layer=l, k_scale=ksc,
+                    v_scale=vsc)[None]
+            o = call(layer)
+            plain = lambda: da.chunk_attention_plain(
+                q.float(), kc[layer][r_t], vc[layer][r_t], offs_t,
+                k_scale=None if ksc is None else ksc[layer][r_t],
+                v_scale=None if vsc is None else vsc[layer][r_t])
+            ref = plain()
+            flip = [layer]
+
+            def kern():
+                flip[0] = 0 if flip[0] == layer else layer
+                call(flip[0])
+
+            library_ms = None
+            if not quant:   # SDPA with a boolean mask and GQA
+                mask = (torch.arange(S, device=dev)[None, None]
+                        <= last[..., None])[:, None]      # [NB, 1, C, S]
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kc[layer][r_t], vc[layer][r_t],
+                    attn_mask=mask, enable_gqa=True))
+            elem = 1 if quant else 2
+            row = dict(form=form, dtype="int8" if quant else "bf16", NB=NB,
+                       C=C, S=S, offs=offs, ms=cuda_ms(kern),
+                       plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                       library_ms=library_ms,
+                       **bound(kv_keys * KV * (2 * Dh * elem
+                                               + (8 if quant else 0))
+                               + 4 * NB * C * H * Dh,
+                               4 * H * Dh * pairs))
+            check("kernel E chunk_attn", o, ref, row)
+            rows["chunk"].append(row)
+            del kc, vc, ksc, vsc, o, ref
+        del k, v
         torch.cuda.empty_cache()
     return rows
 
@@ -319,6 +541,78 @@ def phase_reference(torch, dev):
     log("reference (card bf16 kernels vs CPU fp32 plain)", json.dumps(row))
     if worst < REF_MIN_COS:
         raise AssertionError(f"card disagrees with the CPU reference: {row}")
+    return row
+
+
+def phase_reference_options(torch, dev):
+    """Small model, same weights: card (bf16 weights, kernels B and E) vs
+    CPU (fp32, plain versions) through the verify chunk and the fused fill
+    step, with a bf16 (card) / fp32 (CPU) cache and with an int8 cache on
+    both sides."""
+    from metamorph_tpu_torch.config import (LlamaConfig, MetaMorphConfig,
+                                            MultimodalConfig, SiglipConfig)
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.models import llama as L
+    from metamorph_tpu_torch.ops import decode_attention as da
+
+    lcfg = LlamaConfig(hidden_size=512, intermediate_size=1024, num_layers=2,
+                       num_heads=4, num_kv_heads=1, head_dim=128)
+    cfg = MetaMorphConfig(llama=lcfg, siglip=SiglipConfig.tiny(),
+                          mm=MultimodalConfig(num_image_tokens=4))
+    cpu = init_params(cfg, seed=4, device="cpu", dtype=torch.float32).llama
+    gpu = copy.deepcopy(cpu).to(device=dev, dtype=torch.bfloat16)
+    B, S, C_v, C_f, off, clen = 4, 512, 4, 64, 192, 50
+    lens = [300, off, 257, 90]       # row 1 is filled from `off` on
+    g = torch.Generator().manual_seed(6)
+    ids = torch.randint(10, 120000, (B, max(lens)), generator=g)
+    v_ids = torch.randint(10, 120000, (B, C_v), generator=g)
+    f_ids = torch.randint(10, 120000, (C_f,), generator=g)
+    d_ids = torch.randint(10, 120000, (B,), generator=g)
+    kernels = (da.DECODE_ATTN, da.DECODE_ATTN_INT8, da.CHUNK_ATTN,
+               da.CHUNK_ATTN_INT8)
+    out = {}
+    for quant in (False, True):
+        logits = {}
+        for name, m, d in (("cpu", cpu, torch.device("cpu")),
+                           ("gpu", gpu, dev)):
+            cache = L.init_kv_cache(lcfg, B, S, dtype=m.embed.dtype, device=d,
+                                    quantized=quant)
+            T = max(lens)
+            pos = torch.arange(T, device=d)[None].expand(B, T)
+            L.prefill(m, lcfg, L.embed_tokens(m, ids.to(d)), pos, None,
+                      cache)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=d)
+            # verify chunk at each row's length (stale prefill pad past it)
+            rope = lens_t[:, None] + torch.arange(C_v, device=d)
+            h_v, _ = L.decode_chunk_step_batched(
+                m, lcfg, L.embed_tokens(m, v_ids.to(d)), rope, lens_t, cache)
+            # fused fill step: row 1 gets a chunk at `off`, masked past
+            # clen, with its decode write parked at off + clen
+            idx = lens_t + C_v
+            idx[1] = off + clen
+            cpos = off + torch.arange(C_f, device=d)
+            h_d, h_c, _ = L.decode_step_with_chunk(
+                m, lcfg, L.embed_tokens(m, d_ids.to(d))[:, None],
+                idx[:, None], cache, idx, L.embed_tokens(m, f_ids.to(d)),
+                cpos, torch.arange(C_f, device=d) < clen, 1)
+            hs = torch.cat([h_v.reshape(-1, h_v.shape[-1]),
+                            h_d[[0, 2, 3], 0], h_c[:clen]])
+            logits[name] = L.lm_head(m, lcfg, hs).float().cpu()
+        cos = torch.nn.functional.cosine_similarity(logits["cpu"],
+                                                    logits["gpu"], dim=-1)
+        agree = (logits["cpu"].argmax(-1) == logits["gpu"].argmax(-1))
+        key = "int8" if quant else "bf16"
+        out[key] = dict(min_logit_cosine=cos.min().item(),
+                        argmax_agree=f"{int(agree.sum())}/{agree.numel()}",
+                        min_cos=REF_MIN_COS_INT8 if quant else REF_MIN_COS)
+    row = dict(rows=B, verify_chunk=C_v, fill_chunk=C_f, fill_valid=clen,
+               launched={k.symbol: k.launches for k in kernels}, **out)
+    log("options reference (card bf16 kernels vs CPU fp32 plain)",
+        json.dumps(row))
+    for key, r in out.items():
+        if r["min_logit_cosine"] < r["min_cos"]:
+            raise AssertionError(f"card disagrees with the CPU reference "
+                                 f"({key} cache): {row}")
     return row
 
 
@@ -480,7 +774,111 @@ def phase_main(torch, dev):
                                               for c in run1.values())),
                ids_identical=True)
     log("main path", json.dumps(row))
-    return row
+    return row, (model, cfg, reqs, run1)
+
+
+def record_fills(eng) -> list:
+    """Have `eng` list the uid of every request it starts filling."""
+    filled = []
+    start_fill = eng._start_fill
+
+    def wrapped(slot, req):
+        filled.append(req.uid)
+        start_fill(slot, req)
+
+    eng._start_fill = wrapped
+    return filled
+
+
+def phase_serve_options(torch, dev, model, cfg, reqs, plain_run):
+    """The serving options' main path at full width, on phase 5's model:
+    ServeEngine(spec_k=4, fill_chunk=256, max_fills=2), once with the bf16
+    cache and once with the int8 cache. Phase 5's requests plus two long
+    prompts, queued after them, that stream in through chunked fill while
+    the other slots decode. Every kernel count is set to 0 just before each
+    run and read just after."""
+    import numpy as np
+
+    from metamorph_tpu_torch.constants import LLAMA3_EOS_IDS
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+    from metamorph_tpu_torch.ops import decode_attention as da
+    from metamorph_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(1)
+    long_reqs = [dict(prompt_ids=rng.integers(10, 128000, (t,)).astype(
+        np.int32), max_new_tokens=b, uid=f"long{t}")
+        for t, b in ((1100, 40), (1500, 32))]
+    all_reqs = list(reqs) + long_reqs
+    budgets = {r["uid"]: r["max_new_tokens"] for r in all_reqs}
+    eos = set(LLAMA3_EOS_IDS)
+    kernels = (fa.FLASH_FWD, da.DECODE_ATTN, da.DECODE_ATTN_INT8,
+               da.CHUNK_ATTN, da.CHUNK_ATTN_INT8)
+    rows = {}
+    for kv_int8 in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(model, cfg, n_slots=8, max_cache_len=4096,
+                          spec_k=4, fill_chunk=256, max_fills=2,
+                          kv_int8=kv_int8)
+        filled = record_fills(eng)
+        for r in all_reqs:
+            eng.submit(Request(**r))
+        for kern in kernels:
+            kern.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = {c.uid: c for c in eng.run()}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k.symbol: dict(k.sites, total=k.launches)
+                    for k in kernels}
+        key = "int8" if kv_int8 else "bf16"
+        if sorted(done) != sorted(budgets):
+            raise AssertionError(f"{key}: served {sorted(done)}")
+        for uid, c in done.items():
+            stopped = len(c.ids) > 0 and int(c.ids[-1]) in eos
+            if not (c.steps == budgets[uid] or stopped):
+                raise AssertionError(f"{key} {uid}: {c.steps} steps, budget "
+                                     f"{budgets[uid]}")
+            if not np.isfinite(c.image_embeds).all():
+                raise AssertionError(f"{key} {uid}: non-finite image embeds")
+        if not torch.isfinite(eng.state.next_embed).all():
+            raise AssertionError(f"{key}: non-finite hidden state fed back")
+        dec = da.DECODE_ATTN_INT8 if kv_int8 else da.DECODE_ATTN
+        chunk = da.CHUNK_ATTN_INT8 if kv_int8 else da.CHUNK_ATTN
+        need = {"fill ticks": eng.tick_counts["fill"],
+                "spec ticks": eng.tick_counts["spec"],
+                f"{dec.symbol} launches": dec.launches,
+                f"{chunk.symbol} from chunk_attention (fill)":
+                    chunk.sites.get("chunk_attention", 0),
+                f"{chunk.symbol} from chunk_attention_batched (verify)":
+                    chunk.sites.get("chunk_attention_batched", 0),
+                "requests through chunked fill": len(filled)}
+        missing = [k for k, n in need.items() if n <= 0]
+        if missing or not {r["uid"] for r in long_reqs} <= set(filled):
+            raise AssertionError(f"{key}: the options path did not run "
+                                 f"{missing or 'the long prompts as fills'}:"
+                                 f" {need}")
+        # greedy ids against phase 5's plain bf16 engine: reported only
+        # (bf16 argmax near-ties are not a fault)
+        same = total = 0
+        for uid, c in plain_run.items():
+            n = min(len(c.ids), len(done[uid].ids))
+            same += int((np.asarray(c.ids[:n]) == done[uid].ids[:n]).sum())
+            total += max(len(c.ids), len(done[uid].ids))
+        new_tokens = sum(c.steps for c in done.values())
+        rows[key] = dict(
+            requests=len(done), new_tokens=new_tokens, wall_s=wall,
+            tok_per_s=new_tokens / wall, spec_accepted=eng.spec_accepted,
+            ticks=dict(eng.tick_counts), filled=filled,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            cache_gib=sum(x.numel() * x.element_size()
+                          for x in eng.state.cache.values()) / 2**30,
+            ids_equal_to_plain_share=same / max(total, 1),
+            launches=launches)
+        log(f"serving options main path ({key} cache)", json.dumps(rows[key]))
+        del eng, done
+        free_memory(torch)
+    return rows
 
 
 def phase_train_main(torch, dev):
@@ -639,6 +1037,80 @@ def phase_trainer(torch, dev):
     return row
 
 
+def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
+                   options_rows, train_row) -> dict:
+    """The summary line: one entry per kernel, its launches on the main
+    paths, its worst error, and its time, plain time, bound and library
+    time at the main-path shape."""
+    fl = kernel_rows["flash"][0]       # the main path's 2048-bucket shape
+    de = kernel_rows["decode"][0]
+    bw = bwd_rows[0]                   # causal T=4096, the train main path
+    d8 = opt_rows["decode_int8"][0]    # 8 full 4096-token rows
+    fe = next(r for r in opt_rows["chunk"]       # fill, offset 3840
+              if (r["form"], r["dtype"]) == ("fill", "bf16"))
+    tl = train_row["launches"]
+    ol = {k: r["launches"] for k, r in options_rows.items()}
+
+    def timing(r, ms="ms", b=None):
+        b = b or r
+        return {"ms": r[ms], "plain_ms": r["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": r["library_ms"]}
+
+    summary = {"kernels": [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "metamorph_tpu/ops/flash_attention.py:228, "
+                     "metamorph_tpu/ops/flash_attention.py:287",
+         "launches": main_row["launches"]["flash_fwd"]
+                     + tl["mm_flash_fwd_bf16"],
+         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
+         **timing(fl)},
+        {"name": "decode_attn", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
+         "replaces": "metamorph_tpu/ops/decode_attention.py:191",
+         "launches": main_row["launches"]["decode_attn"],
+         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["decode"]),
+         **timing(de)},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "metamorph_tpu/ops/flash_attention.py:499, "
+                     "metamorph_tpu/ops/flash_attention.py:698",
+         "launches": tl["mm_flash_bwd_dq_bf16"],
+         "max_abs_err": max(r["max_abs_err"]["dq"] for r in bwd_rows),
+         **timing(bw, "ms_dq", bw["bound_dq"])},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "metamorph_tpu/ops/flash_attention.py:529, "
+                     "metamorph_tpu/ops/flash_attention.py:724",
+         "launches": tl["mm_flash_bwd_dkv_bf16"],
+         "max_abs_err": max(max(r["max_abs_err"]["dk"],
+                                r["max_abs_err"]["dv"]) for r in bwd_rows),
+         **timing(bw, "ms_dkv", bw["bound_dkv"])},
+        {"name": "decode_attn_int8", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
+         "replaces": "metamorph_tpu/ops/decode_attention.py:191 "
+                     "(int8 branch)",
+         "launches": ol["int8"]["mm_decode_attn_int8"]["total"],
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in opt_rows["decode_int8"]),
+         **timing(d8)},
+        {"name": "chunk_attn", "route": "cuda",
+         "source": "metamorph_tpu_torch/csrc/chunk_attn.cu",
+         "replaces": "metamorph_tpu/ops/decode_attention.py:317, "
+                     "metamorph_tpu/ops/decode_attention.py:438",
+         "launches": ol["bf16"]["mm_chunk_attn_bf16"]["total"]
+                     + ol["int8"]["mm_chunk_attn_int8"]["total"],
+         "launches_by_site": {k: ol[k][f"mm_chunk_attn_{k}"]
+                              for k in ("bf16", "int8")},
+         "max_abs_err": max(r["max_abs_err"] for r in opt_rows["chunk"]),
+         **timing(fe),
+         "forms": {f"{r['form']}_{r['dtype']}_off{r['offs'][0]}": timing(r)
+                   for r in opt_rows["chunk"]}},
+    ]}
+    return summary
+
+
 def free_memory(torch) -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -675,49 +1147,21 @@ def main() -> int:
     kernel_rows = phase_kernels(torch, dev)
     bwd_rows = phase_bwd_kernels(torch, dev)
     free_memory(torch)
+    opt_rows = phase_option_kernels(torch, dev)
+    free_memory(torch)
     phase_reference(torch, dev)
+    phase_reference_options(torch, dev)
     phase_train_reference(torch, dev)
-    main_row = phase_main(torch, dev)
+    main_row, served = phase_main(torch, dev)
+    options_rows = phase_serve_options(torch, dev, *served)
+    del served
     free_memory(torch)
     train_row = phase_train_main(torch, dev)
     free_memory(torch)
     phase_trainer(torch, dev)
 
-    fl = kernel_rows["flash"][0]       # the main path's 2048-bucket shape
-    de = kernel_rows["decode"][0]
-    bw = bwd_rows[0]                   # causal T=4096, the train main path
-    tl = train_row["launches"]
-    summary = {"kernels": [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "metamorph_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "metamorph_tpu/ops/flash_attention.py:228, "
-                     "metamorph_tpu/ops/flash_attention.py:287",
-         "launches": main_row["launches"]["flash_fwd"]
-                     + tl["mm_flash_fwd_bf16"],
-         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
-         "ms": fl["ms"], "plain_ms": fl["plain_ms"]},
-        {"name": "decode_attn", "route": "cuda",
-         "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
-         "replaces": "metamorph_tpu/ops/decode_attention.py:191",
-         "launches": main_row["launches"]["decode_attn"],
-         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["decode"]),
-         "ms": de["ms"], "plain_ms": de["plain_ms"]},
-        {"name": "flash_bwd_dq", "route": "cuda",
-         "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "metamorph_tpu/ops/flash_attention.py:499, "
-                     "metamorph_tpu/ops/flash_attention.py:698",
-         "launches": tl["mm_flash_bwd_dq_bf16"],
-         "max_abs_err": max(r["max_abs_err"]["dq"] for r in bwd_rows),
-         "ms": bw["ms_dq"], "plain_ms": bw["plain_ms"]},
-        {"name": "flash_bwd_dkv", "route": "cuda",
-         "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "metamorph_tpu/ops/flash_attention.py:529, "
-                     "metamorph_tpu/ops/flash_attention.py:724",
-         "launches": tl["mm_flash_bwd_dkv_bf16"],
-         "max_abs_err": max(max(r["max_abs_err"]["dk"],
-                                r["max_abs_err"]["dv"]) for r in bwd_rows),
-         "ms": bw["ms_dkv"], "plain_ms": bw["plain_ms"]},
-    ]}
+    summary = kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
+                             options_rows, train_row)
     log(smi)
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

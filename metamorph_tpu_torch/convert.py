@@ -26,6 +26,18 @@ from metamorph_tpu_torch.config import MetaMorphConfig
 from metamorph_tpu_torch.models.metamorph import MetaMorph
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another (`device="cpu"`). Raises when a CUDA device is named and none
+    exists, rather than carrying on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device for {device}: metamorph_tpu_torch runs on an "
+            f"NVIDIA GPU; pass device='cpu' to run on the CPU")
+    return device
+
+
 def _np(x) -> np.ndarray:
     if isinstance(x, Mapping):
         raise NotImplementedError(
@@ -36,10 +48,12 @@ def _np(x) -> np.ndarray:
 
 @torch.no_grad()
 def from_jax_params(tree: Mapping[str, Any], cfg: MetaMorphConfig,
-                    device=None, dtype: Optional[torch.dtype] = None
+                    device="cuda", dtype: Optional[torch.dtype] = None
                     ) -> MetaMorph:
-    """JAX parameter tree -> MetaMorph module on `device`. `dtype` defaults
-    to float32 for a float32 tree and bfloat16 otherwise."""
+    """JAX parameter tree -> MetaMorph module on `device` (the card unless
+    the caller passes another). `dtype` defaults to float32 for a float32
+    tree and bfloat16 otherwise."""
+    device = resolve_device(device)
     if dtype is None:
         emb = np.asarray(tree["llama"]["embed"]["embedding"])
         dtype = torch.float32 if emb.dtype == np.float32 else torch.bfloat16
@@ -147,10 +161,11 @@ def to_jax_params(model: MetaMorph) -> dict:
 
 
 @torch.no_grad()
-def init_params(cfg: MetaMorphConfig, seed: int = 0, device=None,
+def init_params(cfg: MetaMorphConfig, seed: int = 0, device="cuda",
                 dtype: torch.dtype = torch.bfloat16) -> MetaMorph:
-    """Random MetaMorph weights made on `device` from `seed`."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    """Random MetaMorph weights made on `device` (the card unless the caller
+    passes another) from `seed`."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     model = MetaMorph(cfg, dtype=dtype, device=device)

@@ -1,16 +1,18 @@
 // Decode attention for Hopper (sm_90a): one new query token per batch row
-// against its window [start, length) of the stacked bf16 KV cache
-// [L, B, KV, S, Dh]. fp32 softmax and accumulation, bf16 out.
+// against its window [start, length) of the stacked KV cache
+// [L, B, KV, S, Dh], bf16 or int8 with fp32 per-(token, kv head) scales
+// [L, B, KV, S]. fp32 softmax and accumulation, bf16 out.
 //
 // Replaces: the Pallas TPU kernel `_decode_kernel` of
 //   metamorph_tpu/ops/decode_attention.py (driven by `decode_attention`),
-//   bf16 branch. The int8-cache branch is not ported yet.
+//   both branches: bf16 (`mm_decode_attn_bf16`) and the int8 cache
+//   (`mm_decode_attn_int8`, one template instance of the same kernel).
 //
 // What bounds it on the H100: every cached key and value row is read once
-// and used for G*Dh multiply-adds, about 1 FLOP per byte — three hundred
-// times below the card's compute/bandwidth balance. HBM bytes are the
-// limit, so the kernel must read each K/V row exactly once and keep enough
-// loads in flight.
+// and used for G*Dh multiply-adds, about 1 FLOP per byte (2 per byte for
+// int8) — far below the card's compute/bandwidth balance. HBM bytes are
+// the limit, so the kernel must read each K/V row exactly once and keep
+// enough loads in flight; the int8 cache halves those bytes.
 //
 // What the design does about it: one CTA per (batch row, kv head) serves
 // all G = H/KV query heads of that group from a single read of the group's
@@ -19,12 +21,17 @@
 // offset, so no per-layer slice is ever copied. It loops only over the
 // row's valid window, so cache beyond `length` costs no bytes. Eight warps
 // take 32-key blocks round robin: in a block each lane scores one key
-// against the G queries (its K row read as 16-byte vectors), the warp
-// reduces max and sum with shuffles, then the lanes split the head dim and
-// stream the V rows coalesced. Each warp keeps its own online-softmax state;
-// the eight partial states merge once through shared memory at the end.
-// Splitting one row's window across CTAs (flash-decoding) for short batches
-// is later work.
+// against the G queries (its K row read as 16-byte vectors: 8 bf16 or 16
+// int8 values), the warp reduces max and sum with shuffles, then the lanes
+// split the head dim and stream the V rows coalesced. Each warp keeps its
+// own online-softmax state; the eight partial states merge once through
+// shared memory at the end. Splitting one row's window across CTAs
+// (flash-decoding) for short batches is later work.
+//
+// int8: as in the Pallas kernel, the scales act on the [G, keys] planes,
+// never on a dequantized [S, Dh] slab: a lane multiplies its key's score by
+// k_scale[j], adds the unscaled probability to the softmax sum, and hands
+// p * v_scale[j] to the PV loop.
 //
 // Semantics held to the Pallas kernel: keys j with start <= j < length are
 // visible; a row with an empty window outputs 0.
@@ -53,14 +60,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D, int G>
+// T is the cache element: bf16, or int8_t with the scale planes ks / vs
+// (null for bf16), addressed like the cache without the head dim.
+template <int D, int G, typename T>
 __global__ void __launch_bounds__(NW * 32)
-decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
-                   const bf16* __restrict__ vc, bf16* __restrict__ o,
+decode_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
+                   const T* __restrict__ vc, const float* __restrict__ ks,
+                   const float* __restrict__ vs, bf16* __restrict__ o,
                    const int* __restrict__ starts,
                    const int* __restrict__ lengths, int H, int S,
                    int64_t layer_off, int64_t c_sb, int64_t c_sh,
+                   int64_t sc_layer_off, int64_t sc_sb, int64_t sc_sh,
                    float scale_log2) {
+  constexpr bool Q8 = sizeof(T) == 1;
+  constexpr int VEC = 16 / sizeof(T);  // cache values per 16-byte vector
   constexpr int DPL = D / 32;         // head-dim elements per lane in PV
   __shared__ float qs[G][D];
   __shared__ float red_m[NW][G];
@@ -80,8 +93,9 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
 
   const int start = starts ? max(starts[b], 0) : 0;
   const int length = min(lengths[b], S);
-  const bf16* kb = kc + layer_off + b * c_sb + kvh * c_sh;
-  const bf16* vb = vc + layer_off + b * c_sb + kvh * c_sh;
+  const T* kb = kc + layer_off + b * c_sb + kvh * c_sh;
+  const T* vb = vc + layer_off + b * c_sb + kvh * c_sh;
+  const int64_t sc_off = sc_layer_off + b * sc_sb + kvh * sc_sh;
 
   float m[G], l[G], acc[G][DPL];
 #pragma unroll
@@ -98,19 +112,37 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
     float s[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = 0.f;
+    float vsc = 0.f;                  // this lane's key: v_scale (int8)
     if (valid) {
-      const bf16* kr = kb + (int64_t)key * D;
+      const T* kr = kb + (int64_t)key * D;
 #pragma unroll 4
-      for (int c = 0; c < D; c += 8) {
+      for (int c = 0; c < D; c += VEC) {
         const uint4 raw = *reinterpret_cast<const uint4*>(kr + c);
-        const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        if constexpr (Q8) {
+          const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 kf = __bfloat1622float2(e[j]);
+          for (int j = 0; j < 16; ++j) {
+            const float kf = static_cast<float>(e[j]);
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            s[g] += qs[g][c + 2 * j] * kf.x + qs[g][c + 2 * j + 1] * kf.y;
+            for (int g = 0; g < G; ++g) s[g] += qs[g][c + j] * kf;
+          }
+        } else {
+          const __nv_bfloat162* e =
+              reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 kf = __bfloat1622float2(e[j]);
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              s[g] += qs[g][c + 2 * j] * kf.x + qs[g][c + 2 * j + 1] * kf.y;
+          }
         }
+      }
+      if constexpr (Q8) {
+        const float ksc = ks[sc_off + key];
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[g] *= ksc;
+        vsc = vs[sc_off + key];
       }
     }
 #pragma unroll
@@ -123,13 +155,21 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
       m[g] = mnew;
 #pragma unroll
       for (int j = 0; j < DPL; ++j) acc[g][j] *= alpha;
-      s[g] = p;
+      s[g] = Q8 ? p * vsc : p;        // v's dequant folded into p
     }
     const int nk = min(32, length - k0);
-    const bf16* vr = vb + (int64_t)k0 * D + lane * DPL;
+    const T* vr = vb + (int64_t)k0 * D + lane * DPL;
     for (int j = 0; j < nk; ++j) {
       float vf[DPL];
-      if constexpr (DPL == 4) {
+      if constexpr (Q8) {
+        if constexpr (DPL == 4) {
+          const char4 c4 = *reinterpret_cast<const char4*>(vr + (int64_t)j * D);
+          vf[0] = c4.x; vf[1] = c4.y; vf[2] = c4.z; vf[3] = c4.w;
+        } else {
+          const char2 c2 = *reinterpret_cast<const char2*>(vr + (int64_t)j * D);
+          vf[0] = c2.x; vf[1] = c2.y;
+        }
+      } else if constexpr (DPL == 4) {
         const uint2 raw = *reinterpret_cast<const uint2*>(vr + (int64_t)j * D);
         const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&raw);
         const float2 a = __bfloat1622float2(e[0]);
@@ -179,33 +219,57 @@ decode_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kc,
   }
 }
 
-template <int D>
-int launch_d(int G, dim3 grid, cudaStream_t st, const bf16* q,
-             const bf16* kc, const bf16* vc, bf16* o, const int* starts,
-             const int* lengths, int H, int S, int64_t layer_off,
-             int64_t c_sb, int64_t c_sh, float scale_log2) {
+template <int D, typename T>
+int launch_d(int G, dim3 grid, cudaStream_t st, const bf16* q, const T* kc,
+             const T* vc, const float* ks, const float* vs, bf16* o,
+             const int* starts, const int* lengths, int H, int S,
+             int64_t layer_off, int64_t c_sb, int64_t c_sh,
+             int64_t sc_layer_off, int64_t sc_sb, int64_t sc_sh,
+             float scale_log2) {
   const dim3 block(NW * 32);
+#define MM_DECODE_CASE(GG)                                                   \
+  case GG:                                                                  \
+    decode_attn_kernel<D, GG, T><<<grid, block, 0, st>>>(                   \
+        q, kc, vc, ks, vs, o, starts, lengths, H, S, layer_off, c_sb, c_sh, \
+        sc_layer_off, sc_sb, sc_sh, scale_log2);                            \
+    break;
   switch (G) {
-    case 1:
-      decode_attn_kernel<D, 1><<<grid, block, 0, st>>>(
-          q, kc, vc, o, starts, lengths, H, S, layer_off, c_sb, c_sh, scale_log2);
-      break;
-    case 2:
-      decode_attn_kernel<D, 2><<<grid, block, 0, st>>>(
-          q, kc, vc, o, starts, lengths, H, S, layer_off, c_sb, c_sh, scale_log2);
-      break;
-    case 4:
-      decode_attn_kernel<D, 4><<<grid, block, 0, st>>>(
-          q, kc, vc, o, starts, lengths, H, S, layer_off, c_sb, c_sh, scale_log2);
-      break;
-    case 8:
-      decode_attn_kernel<D, 8><<<grid, block, 0, st>>>(
-          q, kc, vc, o, starts, lengths, H, S, layer_off, c_sb, c_sh, scale_log2);
-      break;
+    MM_DECODE_CASE(1)
+    MM_DECODE_CASE(2)
+    MM_DECODE_CASE(4)
+    MM_DECODE_CASE(8)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef MM_DECODE_CASE
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, void* o, const int* starts, const int* lengths,
+           int B, int H, int KV, int S, int D, int64_t layer_off,
+           int64_t c_sb, int64_t c_sh, int64_t sc_layer_off, int64_t sc_sb,
+           int64_t sc_sh, float scale, void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KV;
+  const dim3 grid(KV, B);
+  const float scale_log2 = scale * 1.44269504088896340736f;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  bf16* op = static_cast<bf16*>(o);
+  if (D == 128)
+    return launch_d<128, T>(G, grid, st, qp, kp, vp, ks, vs, op, starts,
+                            lengths, H, S, layer_off, c_sb, c_sh,
+                            sc_layer_off, sc_sb, sc_sh, scale_log2);
+  if (D == 64)
+    return launch_d<64, T>(G, grid, st, qp, kp, vp, ks, vs, op, starts,
+                           lengths, H, S, layer_off, c_sb, c_sh,
+                           sc_layer_off, sc_sb, sc_sh, scale_log2);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -219,21 +283,20 @@ extern "C" int mm_decode_attn_bf16(
     const int* lengths, int B, int H, int KV, int S, int D,
     int64_t layer_off, int64_t c_sb, int64_t c_sh, float scale,
     void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
-  const dim3 grid(KV, B);
-  const float scale_log2 = scale * 1.44269504088896340736f;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  bf16* op = static_cast<bf16*>(o);
-  if (D == 128)
-    return launch_d<128>(G, grid, st, qp, kp, vp, op, starts, lengths, H, S,
-                         layer_off, c_sb, c_sh, scale_log2);
-  if (D == 64)
-    return launch_d<64>(G, grid, st, qp, kp, vp, op, starts, lengths, H, S,
-                        layer_off, c_sb, c_sh, scale_log2);
-  return (int)cudaErrorInvalidValue;
+  return launch<bf16>(q, k, v, nullptr, nullptr, o, starts, lengths, B, H, KV,
+                      S, D, layer_off, c_sb, c_sh, 0, 0, 0, scale, stream);
+}
+
+// The int8 cache: k/v int8 as above; k_scale/v_scale fp32 planes with one
+// value per (token, kv head), `sc_layer_off` / `sc_sb` / `sc_sh` their layer
+// offset and b / kv-head strides (elements; the token stride is 1).
+extern "C" int mm_decode_attn_int8(
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, void* o, const int* starts, const int* lengths,
+    int B, int H, int KV, int S, int D, int64_t layer_off, int64_t c_sb,
+    int64_t c_sh, int64_t sc_layer_off, int64_t sc_sb, int64_t sc_sh,
+    float scale, void* stream) {
+  return launch<int8_t>(q, k, v, k_scale, v_scale, o, starts, lengths, B, H,
+                        KV, S, D, layer_off, c_sb, c_sh, sc_layer_off, sc_sb,
+                        sc_sh, scale, stream);
 }

@@ -11,19 +11,27 @@ positions (`cache_lens`) make the rows ragged in time. The pieces:
     the first state-machine transition from the last prompt position; the
     ids form embeds and splices image tokens on the device;
   * `_decode_all`: `steps_per_sync` single-token steps over every slot;
+  * `_decode_all_spec` / `_spec_verify_tick` (`spec_k > 1`): each step runs
+    one batched verify chunk of [next token + spec_k - 1 prompt-lookup
+    drafts] per row and accepts the matching prefix for greedy rows, so
+    their ids equal the plain engine's;
+  * `_decode_fill_all*` / `_fill_core` (`fill_chunk > 0`): decode steps
+    that each carry one `fill_chunk`-token piece of a long pending prompt
+    into its slot, admitting the row on its last chunk;
   * `_advance_rows`: the per-row <image_start> / K continuous tokens /
-    <image_end> state machine, shared by both;
+    <image_end> state machine, shared by all of them;
   * `_snapshot`: one packed int32 array per tick, copied to the host
     asynchronously and read by the scheduler a tick later.
 
+`kv_int8=True` keeps the cache in int8 with per-(token, kv head) scales.
 On CUDA tensors the prefill attention always runs kernel A (the flash
-forward) and the decode attention kernel B; on CPU tensors both take their
-plain versions. Unlike the JAX engine there is no size rule that sends
-small shapes to a plain path on the device.
+forward), decode attention kernel B (bf16 or int8) and the verify and fill
+chunks kernel E; on CPU tensors all take their plain versions. Unlike the
+JAX engine there is no size rule that sends small shapes to a plain path
+on the device.
 
-Not ported yet (they raise NotImplementedError): speculative decoding
-(`spec_k > 1`, `draft`), chunked fill (`fill_chunk > 0`), the shared prefix
-(`shared_prefix_ids`) and the int8 KV cache (`kv_int8`).
+Not ported yet (they raise NotImplementedError): draft-model speculation
+(`draft`) and the shared prefix (`shared_prefix_ids`).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from metamorph_tpu_torch.config import MetaMorphConfig
 from metamorph_tpu_torch.constants import (IM_END_TOKEN_ID, IM_START_TOKEN_ID,
                                            LLAMA3_EOS_IDS)
 from metamorph_tpu_torch.inference.decode import _project_pred
+from metamorph_tpu_torch.inference.spec_decode import make_ngram_draft
 from metamorph_tpu_torch.models import llama as llama_lib
 from metamorph_tpu_torch.models import metamorph as mm_lib
 
@@ -62,7 +71,12 @@ class ServeState:
     temp: torch.Tensor               # [B] f32 — sampling temperature (0=greedy)
     top_p: torch.Tensor              # [B] f32 — nucleus mass (1 = off)
     ids_all: torch.Tensor            # [B, A] int32 — prompt + generated ids
+                                     #   (the drafting source; embeds-path
+                                     #   rows hold generated ids only)
     n_all: torch.Tensor              # [B] int32 — valid ids_all entries
+    spec_extra: torch.Tensor         # [B] int32 — draft tokens accepted per
+                                     #   row (never reset; the scheduler
+                                     #   reads per-row deltas)
 
 
 # Sampling looks at the top-K logits per row before the nucleus filter, as
@@ -169,12 +183,239 @@ def _decode_all(model, state: ServeState, cfg: MetaMorphConfig,
     return state
 
 
+def _spec_verify_tick(model, state: ServeState, cfg: MetaMorphConfig,
+                      drafts: torch.Tensor, K: int, spec_k: int,
+                      eos_ids: torch.Tensor, special_ids: torch.Tensor,
+                      sampling: bool = False,
+                      generator: Optional[torch.Generator] = None
+                      ) -> ServeState:
+    """One speculative chunk step: embed [next token + drafts], run the
+    batched verify chunk, apply the first transition through the full state
+    machine, then the greedy rows' accept chain (exact per row). Updates
+    `state` in place."""
+    B = state.cache_lens.shape[0]
+    D = state.next_embed.shape[-1]
+    Km1 = spec_k - 1
+    dtype = state.next_embed.dtype
+    dev = state.cache_lens.device
+    b_idx = torch.arange(B, device=dev)
+
+    fresh = state.active.clone()
+    d_emb = llama_lib.embed_tokens(model.llama,
+                                   drafts.clamp_min(0).reshape(-1)).to(dtype)
+    chunk = torch.cat([state.next_embed, d_emb.reshape(B, Km1, D)], dim=1)
+    rope_pos = state.cache_lens[:, None] + torch.arange(spec_k, device=dev)
+    h, _ = llama_lib.decode_chunk_step_batched(
+        model.llama, cfg.llama, chunk, rope_pos, state.cache_lens,
+        state.cache)
+    state.cache_lens = state.cache_lens + fresh.to(torch.int32)
+    _, tok1, emit1 = _advance_rows(model, cfg, state, h[:, 0], fresh, K,
+                                   eos_ids, sampling, generator)
+    if Km1 == 0:
+        return state
+
+    preds = llama_lib.lm_head(model.llama, cfg.llama,
+                              h[:, 1:].reshape(B * Km1, -1)).argmax(
+        dim=-1).to(torch.int32).reshape(B, Km1)
+    base_ok = (fresh & state.active & ~emit1 & ~torch.isin(tok1, special_ids)
+               & ~state.in_image & (state.temp <= 0))   # greedy rows only
+    zeros = torch.zeros((B,), dtype=torch.bool, device=dev)
+    n_extra = torch.zeros((B,), dtype=torch.int32, device=dev)
+    last_tok = tok1
+    eos_acc, start_acc, end_acc = zeros, zeros, zeros
+    ok_chain, prev = base_ok, tok1
+    for i in range(Km1):
+        acc_i = (ok_chain & (drafts[:, i] == prev)
+                 & (state.steps + i < state.max_new))
+        cand = preds[:, i]
+        _put_rows(state.ids, b_idx, state.n_ids + i, acc_i, cand)
+        _put_rows(state.ids_all, b_idx, state.n_all + i, acc_i, cand)
+        n_extra = n_extra + acc_i.to(torch.int32)
+        last_tok = torch.where(acc_i, cand, last_tok)
+        eos_acc = eos_acc | (acc_i & torch.isin(cand, eos_ids))
+        start_acc = start_acc | (acc_i & (cand == IM_START_TOKEN_ID))
+        end_acc = end_acc | (acc_i & (cand == IM_END_TOKEN_ID))
+        ok_chain = acc_i & ~torch.isin(cand, special_ids)
+        prev = cand
+
+    tok_embed = llama_lib.embed_tokens(model.llama, last_tok).to(dtype)
+    state.next_embed = torch.where((n_extra > 0)[:, None, None],
+                                   tok_embed[:, None], state.next_embed)
+    state.n_ids = state.n_ids + n_extra
+    state.n_all = state.n_all + n_extra
+    state.cache_lens = state.cache_lens + n_extra
+    state.in_image = state.in_image | start_acc
+    state.img_count = torch.where(end_acc, torch.zeros_like(state.img_count),
+                                  state.img_count)
+    state.steps = state.steps + n_extra
+    state.spec_extra = state.spec_extra + n_extra
+    state.active = state.active & ~(eos_acc | (state.steps >= state.max_new))
+    return state
+
+
+def _decode_all_spec(model, state: ServeState, cfg: MetaMorphConfig,
+                     eos_ids: torch.Tensor, special_ids: torch.Tensor,
+                     n_steps: int = 1, spec_k: int = 4,
+                     sampling: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> ServeState:
+    """Speculative decode tick: each of the `n_steps` chunk steps advances
+    every active slot by >= 1 token; greedy (temp == 0) rows also verify
+    spec_k - 1 prompt-lookup drafts and accept the matching prefix, so
+    their streams equal the plain engine's. Serving rows are unpadded, so
+    physical positions equal RoPE positions. Sampling rows take one token
+    per chunk."""
+    K = cfg.mm.num_image_tokens
+    draft = make_ngram_draft(spec_k - 1)
+    for _ in range(n_steps):
+        drafts = draft(state.ids_all, state.n_all)             # [B, Km1]
+        _spec_verify_tick(model, state, cfg, drafts, K, spec_k, eos_ids,
+                          special_ids, sampling, generator)
+    return state
+
+
+def _chunks_from_ids(model, cfg: MetaMorphConfig, ids: torch.Tensor,
+                     offs: torch.Tensor, img: Optional[torch.Tensor],
+                     img_pos: Optional[torch.Tensor], dtype,
+                     img_on: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[n, C, D] prompt chunks on the device from [n, C] token ids, with the
+    fill request's image tokens img [MI, K, D] spliced by absolute position
+    (chunk token c of chunk i sits at offs[i] + c). `img_on` [n] gates the
+    splice per step: with several fills in one tick only ONE may carry
+    images, and its splice must not leak into the other fills' chunks."""
+    emb = llama_lib.embed_tokens(model.llama, ids).to(dtype)
+    if img is None:
+        return emb
+    MI, K = img.shape[0], img.shape[1]
+    C = ids.shape[1]
+    t = torch.arange(C, device=ids.device)
+    for j in range(MI):
+        pos = img_pos[j]
+        rel = offs.long()[:, None] + t[None] - pos                # [n, C]
+        m = (rel >= 0) & (rel < K) & (pos >= 0)
+        if img_on is not None:
+            m = m & img_on[:, None]
+        rows = img[j].to(dtype)[rel.clamp(0, K - 1)]             # [n, C, D]
+        emb = torch.where(m[..., None], rows, emb)
+    return emb
+
+
+def _fill_core(model, state: ServeState, cfg: MetaMorphConfig,
+               chunks: torch.Tensor,      # [n, C, D] prompt chunks
+               chunk_ids: torch.Tensor,   # [n, C] int32 (-1 for embeds)
+               fill_n_all: torch.Tensor,  # [n] drafting-source length at
+                                          #   admission (0 for embeds)
+               chunk_offs: torch.Tensor,  # [n] region starts
+               chunk_lens: torch.Tensor,  # [n] valid tokens (0 = no chunk)
+               is_last: torch.Tensor,     # [n] bool — admit after this one
+               fill_slot: torch.Tensor,   # [n] target row of each step
+               prompt_len: torch.Tensor, fill_max_new: torch.Tensor,
+               fill_temp: torch.Tensor, fill_top_p: torch.Tensor,
+               eos_ids: torch.Tensor, sampling: bool = False,
+               generator: Optional[torch.Generator] = None) -> ServeState:
+    """n decode steps, each carrying one chunk of a pending prompt into row
+    `fill_slot[i]` (chunked prefill fused with the decode stream). Steps of
+    one tick may feed different rows. On the chunk marked is_last its row
+    is reset and admitted, and runs its first transition in the same step.
+    Updates `state` in place; every per-step value stays on the device."""
+    K = cfg.mm.num_image_tokens
+    n, C = chunks.shape[:2]
+    B = state.cache_lens.shape[0]
+    dev = chunks.device
+    b_all = torch.arange(B, device=dev)
+    t = torch.arange(C, device=dev)
+    A = state.ids_all.shape[1]
+    for i in range(n):
+        slot, off, clen = fill_slot[i], chunk_offs[i], chunk_lens[i]
+        one_hot = b_all == slot                                  # [B]
+        valid = clen > 0
+        # record this chunk's ids as drafting source (row fill_slot)
+        cols = off.long().clamp(0, A - C) + t
+        cur = state.ids_all[slot.long(), cols]
+        state.ids_all[slot.long(), cols] = torch.where(
+            (t < clen) & valid, chunk_ids[i], cur)
+        # park the fill row's decode-side junk write at the end of this
+        # chunk's region (overwritten by the next chunk / first real token)
+        parked = torch.where(valid, off + clen,
+                             state.cache_lens[slot.long()])
+        state.cache_lens = torch.where(one_hot & valid, parked.to(torch.int32),
+                                       state.cache_lens)
+        h_dec, h_chunk, _ = llama_lib.decode_step_with_chunk(
+            model.llama, cfg.llama, state.next_embed,
+            state.cache_lens[:, None], state.cache, state.cache_lens,
+            chunks[i], off + t, (t < clen) & valid, slot)
+        state.cache_lens = state.cache_lens + state.active.to(torch.int32)
+
+        # admission: reset the fill row's lanes and activate it, then the
+        # shared state machine runs its first transition this same step
+        row = one_hot & is_last[i] & valid                       # [B]
+
+        def put(arr, val):
+            cond = row.reshape((B,) + (1,) * (arr.dim() - 1))
+            return torch.where(cond, torch.as_tensor(val, dtype=arr.dtype,
+                                                     device=dev), arr)
+
+        state.cache_lens = put(state.cache_lens, prompt_len[i])
+        state.in_image = put(state.in_image, False)
+        state.img_count = put(state.img_count, 0)
+        state.ids = put(state.ids, -1)
+        state.n_ids = put(state.n_ids, 0)
+        state.img_embeds = put(state.img_embeds, 0.0)
+        state.n_img = put(state.n_img, 0)
+        state.steps = put(state.steps, 0)
+        state.max_new = put(state.max_new, fill_max_new[i])
+        state.active = state.active | row
+        state.temp = put(state.temp, fill_temp[i])
+        state.top_p = put(state.top_p, fill_top_p[i])
+        state.n_all = put(state.n_all, fill_n_all[i])
+        h_last = h_chunk[(clen.long() - 1).clamp_min(0)]         # [D]
+        h = torch.where(row[:, None], h_last[None], h_dec[:, 0])
+        _advance_rows(model, cfg, state, h, state.active, K, eos_ids,
+                      sampling, generator)
+    return state
+
+
+def _decode_fill_all(model, state, cfg, chunks, chunk_offs, chunk_lens,
+                     is_last, fill_slot, prompt_len, fill_max_new, fill_temp,
+                     fill_top_p, eos_ids, sampling=False,
+                     generator=None) -> ServeState:
+    """Pre-fused-embeddings fill: [n, C, D] float chunks; the admitted row
+    drafts from generated tokens only (fill_n_all = 0)."""
+    no_ids = torch.full(chunks.shape[:2], -1, dtype=torch.int32,
+                        device=chunks.device)
+    return _fill_core(model, state, cfg, chunks, no_ids,
+                      torch.zeros_like(prompt_len), chunk_offs, chunk_lens,
+                      is_last, fill_slot, prompt_len, fill_max_new,
+                      fill_temp, fill_top_p, eos_ids, sampling, generator)
+
+
+def _decode_fill_all_ids(model, state, cfg, chunk_ids, img, img_pos, img_on,
+                         chunk_offs, chunk_lens, is_last, fill_slot,
+                         prompt_len, fill_max_new, fill_temp, fill_top_p,
+                         eos_ids, sampling=False,
+                         generator=None) -> ServeState:
+    """Token-ids fill: embeddings (and the image-carrying fill's splice,
+    gated per step) are computed on the device; the prompt ids seed the
+    row's drafting source."""
+    chunks = _chunks_from_ids(model, cfg, chunk_ids, chunk_offs, img,
+                              img_pos, state.next_embed.dtype, img_on)
+    return _fill_core(model, state, cfg, chunks, chunk_ids, prompt_len,
+                      chunk_offs, chunk_lens, is_last, fill_slot, prompt_len,
+                      fill_max_new, fill_temp, fill_top_p, eos_ids, sampling,
+                      generator)
+
+
+# columns of the packed snapshot ahead of the ids (the JAX engine's first
+# five; its sixth, the drafter's lag, comes with draft models)
+_SNAP_HEAD = 5
+
+
 def _snapshot(state: ServeState) -> torch.Tensor:
     """Everything the scheduler reads to harvest, packed into ONE int32
-    array [B, 4 + ids_cap]: active / n_ids / n_img / steps, then each row's
-    generated ids."""
+    array [B, 5 + ids_cap]: active / n_ids / n_img / steps / spec_extra,
+    then each row's generated ids."""
     head = torch.stack([state.active.to(torch.int32), state.n_ids,
-                        state.n_img, state.steps], dim=1)
+                        state.n_img, state.steps, state.spec_extra], dim=1)
     return torch.cat([head, state.ids], dim=1)
 
 
@@ -333,7 +574,12 @@ class ServeEngine:
         eng.submit(Request(prompt_ids=ids, max_new_tokens=128, uid="r1"))
         done = eng.run()             # or step() incrementally
 
-    The engine runs where the model's weights live (`model`'s device)."""
+    The engine runs where the model's weights live (`model`'s device).
+    Options, as in the JAX engine: `spec_k > 1` prompt-lookup speculation
+    (routed per tick by the rows' acceptance rates), `fill_chunk > 0`
+    chunked fill of long prompts while slots decode (up to `max_fills` at
+    once; 0 when it does not divide `max_cache_len`), `kv_int8` the int8
+    KV cache."""
 
     def __init__(self, model: mm_lib.MetaMorph, cfg: MetaMorphConfig,
                  n_slots: int = 8, max_cache_len: int = 2048,
@@ -343,16 +589,12 @@ class ServeEngine:
                                                      2048, 4096),
                  steps_per_sync: int = 8, max_prefill_images: int = 4,
                  seed: int = 0, on_token=None, fill_chunk: int = 0,
-                 kv_int8: bool = False, spec_k: int = 0, draft=None,
-                 shared_prefix_ids=None):
-        if spec_k > 1 or draft is not None:
-            raise _not_ported("speculative decoding (spec_k > 1, draft)")
-        if fill_chunk > 0:
-            raise _not_ported("chunked fill (fill_chunk > 0)")
+                 max_fills: int = 2, kv_int8: bool = False, spec_k: int = 0,
+                 draft=None, shared_prefix_ids=None):
+        if draft is not None:
+            raise _not_ported("draft-model speculation (draft)")
         if shared_prefix_ids is not None:
             raise _not_ported("the shared prefix (shared_prefix_ids)")
-        if kv_int8:
-            raise _not_ported("the int8 KV cache (kv_int8)")
         self.model, self.cfg = model, cfg
         self.n_slots, self.S = n_slots, max_cache_len
         self.device = model.llama.embed.device
@@ -361,6 +603,10 @@ class ServeEngine:
         self.stop_ids = tuple(stop_ids)
         self._eos_ids = torch.tensor(tuple(LLAMA3_EOS_IDS) + self.stop_ids,
                                      dtype=torch.int32, device=dev)
+        self._special_ids = torch.tensor(
+            tuple(LLAMA3_EOS_IDS) + self.stop_ids
+            + (IM_START_TOKEN_ID, IM_END_TOKEN_ID), dtype=torch.int32,
+            device=dev)
         # buckets above the cache length are clamped, with the cache length
         # itself on top
         buckets = sorted(b for b in prefill_buckets if b <= max_cache_len)
@@ -371,13 +617,18 @@ class ServeEngine:
         D = cfg.llama.hidden_size
         Dv = cfg.siglip.hidden_size
         K = cfg.mm.num_image_tokens
+        # speculation: spec_k slack slots so a chunk written at the budget
+        # boundary never clamps onto live entries
+        self.spec_k = spec_k if spec_k > 1 else 0
+        S_alloc = max_cache_len + (self.spec_k + 8 if self.spec_k else 0)
 
         def zeros(*shape, dt=torch.int32):
             return torch.zeros(shape, dtype=dt, device=dev)
 
         self.state = ServeState(
-            cache=llama_lib.init_kv_cache(cfg.llama, n_slots, max_cache_len,
-                                          dtype=dtype, device=dev),
+            cache=llama_lib.init_kv_cache(cfg.llama, n_slots, S_alloc,
+                                          dtype=dtype, device=dev,
+                                          quantized=kv_int8),
             cache_lens=zeros(n_slots),
             next_embed=zeros(n_slots, 1, D, dt=dtype),
             in_image=zeros(n_slots, dt=torch.bool),
@@ -395,6 +646,7 @@ class ServeEngine:
             ids_all=torch.full((n_slots, max_cache_len + 8), -1,
                                dtype=torch.int32, device=dev),
             n_all=zeros(n_slots),
+            spec_extra=zeros(n_slots),
         )
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
@@ -402,9 +654,36 @@ class ServeEngine:
         # engines never run the sampler
         self._sampling = False
         self.max_prefill_images = max_prefill_images
+        # adaptive speculation, PER ROW: each slot keeps an EMA of accepted
+        # drafts per chunk step for its current request (reset on
+        # admission); a tick runs the spec program iff the occupied rows'
+        # expected extra tokens beat `spec_overhead_frac` of the tick's
+        # tokens. Rows stay on probation (always probed) for their first
+        # few spec ticks: the first chunk after admission accepts nothing
+        # while the drafting source warms up.
+        self._spec_ticked = False
+        self._spec_extras_seen = np.zeros((n_slots,), np.int64)
+        self._row_rate = np.full((n_slots,), -1.0)   # -1 = unprobed
+        self._row_obs = np.zeros((n_slots,), np.int32)
+        self._spec_probation = 3
+        self._spec_tick_n = 0
+        self._spec_tick_rows = np.zeros((n_slots,), bool)
+        self._ticks_since_spec = 0
+        self.spec_overhead_frac = 0.1
+        # chunked fill: chunk regions must tile the cache exactly; only
+        # prompts of at least 2 chunks stream through it, and only while
+        # other slots decode
+        self.fill_chunk = (fill_chunk if fill_chunk > 0
+                           and max_cache_len % fill_chunk == 0 else 0)
+        self.fill_min_len = 2 * self.fill_chunk
+        self._fills: list = []   # in-progress chunked fills (FIFO)
+        self.max_fills = max(int(max_fills), 1)
+        # ticks by the program they ran: "prefill" (blocking admissions),
+        # "fill", "spec", "plain"
+        self.tick_counts = {"prefill": 0, "fill": 0, "spec": 0, "plain": 0}
         # the packed status travels to a reused pinned host buffer behind
         # the next tick's device work (CUDA), read one tick later
-        snap_shape = (n_slots, 4 + max_new_tokens_cap)
+        snap_shape = (n_slots, _SNAP_HEAD + max_new_tokens_cap)
         self._snap_host = (torch.empty(snap_shape, dtype=torch.int32,
                                        pin_memory=True)
                            if dev.type == "cuda" else None)
@@ -463,6 +742,12 @@ class ServeEngine:
             self._sampling = True
         req.t_submit = time.monotonic()
         self.pending.append(req)
+
+    @property
+    def spec_accepted(self) -> int:
+        """Cumulative draft tokens accepted by speculative ticks (host
+        mirror of the device counter; one sync chunk stale)."""
+        return int(self._spec_extras_seen.sum())
 
     def _bucket(self, t0: int) -> int:
         for b in self.prefill_buckets:
@@ -528,6 +813,8 @@ class ServeEngine:
             self.slot_t_admit[slot] = now
             self.slot_queue_s[slot] = now - req.t_submit
             self._streamed[slot] = 0
+            self._row_rate[slot] = -1.0  # new request: re-probe its spec rate
+            self._row_obs[slot] = 0
 
     def _fetch_snapshot(self) -> None:
         snap = _snapshot(self.state)
@@ -541,9 +828,11 @@ class ServeEngine:
 
     def _harvest(self) -> None:
         """Move finished rows (occupied but no longer active) to completed,
-        using the PREVIOUS tick's packed snapshot. Rows are final once
-        inactive, so its ids are their final ids; only img_embeds need a
-        live fetch, and only for rows that emitted images."""
+        using the PREVIOUS tick's packed snapshot, and update each row's
+        speculation rate. Rows are final once inactive, so its ids are their
+        final ids; only img_embeds need a live fetch, and only for rows that
+        emitted images. Filling slots still hold the previous request's
+        lanes until their admitting chunk and are skipped."""
         if self._snap is None:
             return
         host, ev = self._snap
@@ -553,17 +842,34 @@ class ServeEngine:
         self._snap = None
         active, n_ids, n_img, steps = snap[:, 0], snap[:, 1], snap[:, 2], \
             snap[:, 3]
-        ids_all = snap[:, 4:]
+        # per-row accepted-drafts-per-chunk-step EMA from this tick's delta
+        extras_row = snap[:, 4].astype(np.int64)
+        if self._spec_ticked:
+            self._spec_ticked = False
+            if self._spec_tick_n > 0:
+                delta = (extras_row - self._spec_extras_seen) \
+                    / float(self._spec_tick_n)
+                for s in np.where(self._spec_tick_rows)[0]:
+                    self._row_obs[s] += 1
+                    if self._row_rate[s] < 0:
+                        self._row_rate[s] = delta[s]
+                    else:
+                        self._row_rate[s] = (0.7 * self._row_rate[s]
+                                             + 0.3 * delta[s])
+        self._spec_extras_seen = extras_row
+        ids_all = snap[:, _SNAP_HEAD:]
+        filling = {f["slot"] for f in self._fills}
         if self.on_token is not None:
             for s in range(self.n_slots):
-                if self.slot_uid[s] is None:
+                if s in filling or self.slot_uid[s] is None:
                     continue
                 lo, hi = int(self._streamed[s]), int(n_ids[s])
                 if hi > lo:
                     self.on_token(self.slot_uid[s], ids_all[s, lo:hi].copy())
                     self._streamed[s] = hi
         fin = [s for s in range(self.n_slots)
-               if self.slot_uid[s] is not None and not active[s]]
+               if s not in filling and self.slot_uid[s] is not None
+               and not active[s]]
         if not fin:
             return
         Dv = self.state.img_embeds.shape[-1]
@@ -581,15 +887,156 @@ class ServeEngine:
                 serve_s=now - self.slot_t_admit[s]))
             self.slot_uid[s] = None
 
+    def _spec_worth_it(self, occ, n: int) -> bool:
+        """Per-row spec/plain routing: run the speculative program iff the
+        occupied rows' expected extra tokens beat the spec chunk's overhead
+        (spec_overhead_frac of the plain tick's B*n tokens). Rows on
+        probation always probe; after a fallback, stale rates re-probe
+        every 64 plain ticks."""
+        rates = self._row_rate[occ]
+        if (self._row_obs[list(occ)] < self._spec_probation).any() \
+                or self._ticks_since_spec >= 64:
+            return True
+        est_extras = float(np.clip(rates, 0.0, None).sum()) * n
+        return est_extras >= self.spec_overhead_frac * len(occ) * n
+
+    def _mark_spec_tick(self, occ, n: int) -> None:
+        self._spec_ticked = True
+        self._spec_tick_n = n
+        self._spec_tick_rows[:] = False
+        self._spec_tick_rows[list(occ)] = True
+        self._ticks_since_spec = 0
+
+    def _start_fill(self, slot: int, req: Request) -> None:
+        self.slot_uid[slot] = req.uid  # reserve the slot
+        self._row_rate[slot] = -1.0    # new request: re-probe its spec rate
+        self._row_obs[slot] = 0
+        self._fills.append({"slot": slot, "req": req, "kind": self._kind(req),
+                            "chunk": 0,
+                            "nchunks": -(-req.prompt_len // self.fill_chunk)})
+
+    def _can_join_fills(self, req: Request) -> bool:
+        """May `req` start filling beside the fills in flight? Several fills
+        run on the ids program (embeds fills stay exclusive) and carry at
+        most one image request per tick."""
+        if len(self._fills) >= self.max_fills:
+            return False
+        if not self._fills:
+            return True
+        kind = self._kind(req)
+        if kind == "embeds" or any(f["kind"] == "embeds"
+                                   for f in self._fills):
+            return False
+        if kind == "ids_img" and any(f["kind"] == "ids_img"
+                                     for f in self._fills):
+            return False
+        return True
+
+    def _fill_tick(self, n: int) -> int:
+        """Run fused decode + chunk steps feeding up to n prompt chunks of
+        the fills in flight (FIFO: the head fill's remaining chunks first,
+        then the next fill's). Each fill's row admits on its last chunk. The
+        step count is the remaining chunks capped at n, snapped down to a
+        power of two. Returns the number of steps run."""
+        C, D = self.fill_chunk, self.cfg.llama.hidden_size
+        dev = self.device
+        dtype = self.state.next_embed.dtype
+        remaining = sum(f["nchunks"] - f["chunk"] for f in self._fills)
+        n = min(n, remaining)
+        n = 1 << (n.bit_length() - 1)
+        kind0 = self._fills[0]["kind"]
+        plan = []                      # (fill, chunk index)
+        fi = 0
+        for _ in range(n):
+            while self._fills[fi]["chunk"] >= self._fills[fi]["nchunks"]:
+                fi += 1
+            f = self._fills[fi]
+            plan.append((f, f["chunk"]))
+            f["chunk"] += 1
+        # per step: off, len, last, slot, prompt_len, max_new, img_on
+        ints = np.zeros((7, n), np.int32)
+        floats = np.ones((2, n), np.float32)          # temp, top_p
+        if kind0 == "embeds":
+            chunks = np.zeros((n, C, D), np.float32)
+        else:
+            chunk_ids = np.zeros((n, C), np.int32)
+        img_fill = None
+        for i, (f, j) in enumerate(plan):
+            req = f["req"]
+            T0 = req.prompt_len
+            lo, hi = j * C, min((j + 1) * C, T0)
+            if kind0 == "embeds":
+                chunks[i, :hi - lo] = np.asarray(req.prompt_embeds)[lo:hi]
+            else:
+                chunk_ids[i, :hi - lo] = np.asarray(req.prompt_ids,
+                                                    np.int32)[lo:hi]
+            ints[:6, i] = (lo, hi - lo, j == f["nchunks"] - 1, f["slot"], T0,
+                           req.max_new_tokens)
+            floats[:, i] = (req.temperature, req.top_p)
+            if f["kind"] == "ids_img":
+                img_fill = f
+                ints[6, i] = 1
+        it = torch.as_tensor(ints).to(dev)
+        ft = torch.as_tensor(floats).to(dev)
+        offs, lens, last, slots, plens, maxnews, img_on = it
+        common = (offs, lens, last.bool(), slots, plens, maxnews, ft[0],
+                  ft[1], self._eos_ids, self._sampling, self.generator)
+        if kind0 == "embeds":
+            _decode_fill_all(self.model, self.state, self.cfg,
+                             torch.as_tensor(chunks).to(dev, dtype), *common)
+        else:
+            img = img_pos = on = None
+            if img_fill is not None:
+                MI, K = self.max_prefill_images, self.cfg.mm.num_image_tokens
+                req = img_fill["req"]
+                ie = torch.as_tensor(req.image_embeds)
+                img = torch.zeros((MI, K, D), dtype=dtype, device=dev)
+                img[:ie.shape[0]] = ie.to(device=dev, dtype=dtype)
+                pos_np = np.full((MI,), -1, np.int32)
+                pos_np[:ie.shape[0]] = np.asarray(req.image_positions,
+                                                  np.int32)
+                img_pos = torch.as_tensor(pos_np).to(dev)
+                on = img_on.bool()
+            _decode_fill_all_ids(self.model, self.state, self.cfg,
+                                 torch.as_tensor(chunk_ids).to(dev), img,
+                                 img_pos, on, *common)
+        now = time.monotonic()
+        for f in [f for f in self._fills if f["chunk"] >= f["nchunks"]]:
+            slot, req = f["slot"], f["req"]    # admitted during the tick
+            self.slot_t_admit[slot] = now
+            self.slot_queue_s[slot] = now - req.t_submit
+            self._streamed[slot] = 0
+            self._fills.remove(f)
+        return n
+
+    def _head_is_chunkable(self, decoding: bool) -> bool:
+        """Chunked fill pays for LONG prompts while slots are decoding (a
+        blocking long prefill stalls every decoding slot); short prompts are
+        cheaper through the batched blocking prefill."""
+        if not (self.fill_chunk and decoding and self.pending):
+            return False
+        return self.pending[0].prompt_len >= self.fill_min_len
+
     @torch.no_grad()
     def step(self) -> None:
-        """One scheduler tick: harvest the previous tick's snapshot, admit
-        pending requests into free slots (runs of consecutive same-bucket,
-        same-kind requests share one prefill), run `steps_per_sync` decode
-        steps, and start this tick's snapshot copy."""
+        """One scheduler tick. Admission policy, as in the JAX engine:
+          * short prompts (and a cold start) -> blocking batched prefill
+            (runs of consecutive same-bucket, same-kind requests share one
+            prefill, snapped to a power of two);
+          * long prompts while slots decode -> chunked fill fused into the
+            decode steps (`fill_chunk`-token pieces).
+        Then one tick of 2**floor(log2(steps_per_sync)) steps: fill steps
+        while fills are in flight, else spec steps (when speculation is on
+        and the rows' rates say it pays) or plain decode steps. The tick
+        starts by harvesting the previous tick's snapshot and ends by
+        starting this tick's copy."""
         self._harvest()
         free = [s for s in range(self.n_slots) if self.slot_uid[s] is None]
-        while free and self.pending:
+        fill_slots = {f["slot"] for f in self._fills}
+        decoding = any(self.slot_uid[s] is not None and s not in fill_slots
+                       for s in range(self.n_slots))
+        while (free and self.pending and not self._fills
+               and not self._head_is_chunkable(decoding)):
             b0 = self._bucket(self.pending[0].prompt_len)
             k0 = self._kind(self.pending[0])
             k = 1
@@ -597,12 +1044,35 @@ class ServeEngine:
                    and self._bucket(self.pending[k].prompt_len) == b0
                    and self._kind(self.pending[k]) == k0):
                 k += 1
+            k = 1 << (k.bit_length() - 1)
             reqs = [self.pending.pop(0) for _ in range(k)]
             slots = [free.pop(0) for _ in range(k)]
             self._admit_many(slots, reqs, b0)
-        if any(u is not None for u in self.slot_uid):
-            _decode_all(self.model, self.state, self.cfg, self._eos_ids,
-                        self.steps_per_sync, self._sampling, self.generator)
+            self.tick_counts["prefill"] += 1
+            decoding = True
+        while (free and self._head_is_chunkable(decoding)
+               and self._can_join_fills(self.pending[0])):
+            self._start_fill(free.pop(0), self.pending.pop(0))
+
+        fill_slots = {f["slot"] for f in self._fills}
+        occ = [s for s in range(self.n_slots)
+               if self.slot_uid[s] is not None and s not in fill_slots]
+        n = 1 << (self.steps_per_sync.bit_length() - 1)
+        if self._fills:
+            self._fill_tick(n)
+            self.tick_counts["fill"] += 1
+        elif occ:
+            if self.spec_k and self._spec_worth_it(occ, n):
+                _decode_all_spec(self.model, self.state, self.cfg,
+                                 self._eos_ids, self._special_ids, n,
+                                 self.spec_k, self._sampling, self.generator)
+                self._mark_spec_tick(occ, n)
+                self.tick_counts["spec"] += 1
+            else:
+                self._ticks_since_spec += 1
+                _decode_all(self.model, self.state, self.cfg, self._eos_ids,
+                            n, self._sampling, self.generator)
+                self.tick_counts["plain"] += 1
         self._fetch_snapshot()
 
     def run(self, max_ticks: int = 100_000) -> List[Completed]:

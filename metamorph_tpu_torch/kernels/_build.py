@@ -22,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -117,13 +117,19 @@ class Kernel:
 
     `launch` calls the entry point, raises if it returned a nonzero
     cudaError_t (a refused launch never runs, and a later synchronize would
-    not report it), and only then adds one to `launches`."""
+    not report it), and only then adds one to `launches` and, when the
+    wrapper names its call site, to `sites[site]`."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.sites: Dict[str, int] = {}
         self._fn = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.sites = {}
 
     def _bind(self):
         fn = getattr(LIBRARY.get(), self.symbol)
@@ -132,10 +138,12 @@ class Kernel:
         self._fn = fn
         return fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, site: Optional[str] = None) -> None:
         fn = self._fn or self._bind()
         err = fn(*args)
         if err != 0:
             msg = LIBRARY.get().mm_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        if site is not None:
+            self.sites[site] = self.sites.get(site, 0) + 1

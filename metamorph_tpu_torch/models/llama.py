@@ -7,12 +7,15 @@ and take the module where those take the parameter tree.
 
 Attention goes through flash attention (`ops/flash_attention.py`, a
 differentiable `torch.autograd.Function` when the weights require grad) for
-full sequences and through decode attention (`ops/decode_attention.py`) for
-single-token steps; each runs its CUDA kernels on the card and its plain
-version on the CPU. The layer loop is a Python loop; training checkpoints
-each layer with `torch.utils.checkpoint` under the JAX package's remat
-policies. The KV cache [L, B, KV, S, Dh] is updated in place
-(`index_put_`), with no host sync.
+full sequences, through decode attention (`ops/decode_attention.py`) for
+single-token steps and through chunk attention (the same module) for the
+speculative verify chunk (`decode_chunk_step_batched`) and the fused
+decode + prompt-chunk step of chunked fill (`decode_step_with_chunk`); each
+runs its CUDA kernels on the card and its plain version on the CPU. The
+layer loop is a Python loop; training checkpoints each layer with
+`torch.utils.checkpoint` under the JAX package's remat policies. The KV
+cache [L, B, KV, S, Dh] (bf16, or int8 with fp32 scales [L, B, KV, S]) is
+updated in place (`index_put_`), with no host sync.
 """
 
 from __future__ import annotations
@@ -28,8 +31,11 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from metamorph_tpu_torch.config import LlamaConfig
-from metamorph_tpu_torch.ops.decode_attention import decode_attention
+from metamorph_tpu_torch.ops.decode_attention import (chunk_attention,
+                                                      chunk_attention_batched,
+                                                      decode_attention)
 from metamorph_tpu_torch.ops.flash_attention import flash_attention
+from metamorph_tpu_torch.ops.quant import quantize_kv
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -260,13 +266,48 @@ def lm_head(model: Llama, cfg: LlamaConfig, hidden: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+                  dtype=torch.bfloat16, device=None,
+                  quantized: bool = False) -> Dict[str, torch.Tensor]:
     """Decode cache [L, B, KV, S, Dh]: each (row, kv head) owns a contiguous
-    [S, Dh] slab — the layout the decode kernel streams. (The JAX package's
-    int8 cache is not ported.)"""
+    [S, Dh] slab — the layout the decode and chunk kernels stream.
+
+    quantized=True stores int8 entries plus per-(token, kv head) fp32
+    scales "k_scale"/"v_scale" [L, B, KV, S] (`ops/quant.quantize_kv` is
+    the write-side transform); downstream code detects the mode by the
+    presence of "k_scale"."""
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    if quantized:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cache_entries(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                   v: torch.Tensor):
+    """k/v [..., Dh] in the cache's form: (k, v, k_scale, v_scale), the
+    scales None for a bf16 cache."""
+    if "k_scale" in cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return kq, vq, ks, vs
+    return k.to(cache["k"].dtype), v.to(cache["v"].dtype), None, None
+
+
+def _scales(cache: Dict[str, torch.Tensor]):
+    return cache.get("k_scale"), cache.get("v_scale")
+
+
+def _put(cache: Dict[str, torch.Tensor], l: int, index, k, v, ks, vs) -> None:
+    """Write entries at cache[name][l][index] in place (scales likewise,
+    without the head dim)."""
+    cache["k"][l].index_put_(index, k)
+    cache["v"][l].index_put_(index, v)
+    if ks is not None:
+        cache["k_scale"][l].index_put_(index, ks)
+        cache["v_scale"][l].index_put_(index, vs)
 
 
 def prefill(model: Llama, cfg: LlamaConfig, inputs_embeds, positions,
@@ -274,16 +315,19 @@ def prefill(model: Llama, cfg: LlamaConfig, inputs_embeds, positions,
             rows: Optional[torch.Tensor] = None):
     """Run the prompt through the model and write each layer's K/V into
     cache[l, rows, :, :T] IN PLACE as the layer finishes (no stacked copy of
-    all layers). `rows` [B] selects the cache rows (default 0..B-1).
-    Returns (hidden [B,T,D], cache)."""
+    all layers; quantized entries for an int8 cache). `rows` [B] selects
+    the cache rows (default 0..B-1). Returns (hidden [B,T,D], cache)."""
     T = inputs_embeds.shape[1]
-    ck, cv = cache["k"], cache["v"]
+    dev = cache["k"].device
     if rows is None:
-        rows = torch.arange(inputs_embeds.shape[0], device=ck.device)
+        rows = torch.arange(inputs_embeds.shape[0], device=dev)
+    index = (rows.long()[:, None, None],
+             torch.arange(cfg.num_kv_heads, device=dev)[None, :, None],
+             torch.arange(T, device=dev)[None, None, :])
 
     def write(l, k, v):
-        ck[l, rows, :, :T] = k.transpose(1, 2).to(ck.dtype)
-        cv[l, rows, :, :T] = v.transpose(1, 2).to(cv.dtype)
+        _put(cache, l, index, *_cache_entries(cache, k.transpose(1, 2),
+                                              v.transpose(1, 2)))
 
     hidden = _forward(model, cfg, inputs_embeds, positions, attn_mask, write)
     return hidden, cache
@@ -308,15 +352,130 @@ def decode_step(model: Llama, cfg: LlamaConfig, x: torch.Tensor,
     lengths = (cache_idx + 1).to(torch.int32)
     # write index per row; clamped so a frozen row can never index past S
     widx = cache_idx.clamp(max=S - 1).long()[:, None]
-    b_idx = torch.arange(B, device=ck.device)[:, None]
-    kv_idx = torch.arange(KV, device=ck.device)[None, :]
+    index = (torch.arange(B, device=ck.device)[:, None],
+             torch.arange(KV, device=ck.device)[None, :], widx)
+    ks_all, vs_all = _scales(cache)
     for l, layer in enumerate(model.layers):
         h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
         q, k, v = _qkv(layer, cfg, h, cos, sin)
-        ck[l].index_put_((b_idx, kv_idx, widx), k[:, 0].to(ck.dtype))
-        cv[l].index_put_((b_idx, kv_idx, widx), v[:, 0].to(cv.dtype))
-        out = decode_attention(q[:, 0], ck, cv, lengths, layer=l)
+        _put(cache, l, index, *_cache_entries(cache, k[:, 0], v[:, 0]))
+        out = decode_attention(q[:, 0], ck, cv, lengths, layer=l,
+                               k_scale=ks_all, v_scale=vs_all)
         x = x + out.reshape(B, 1, H * Dh) @ layer.wo
         h2 = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _mlp_block(layer, h2)
     return rms_norm(x, model.final_norm, cfg.rms_norm_eps), cache
+
+
+def decode_chunk_step_batched(model: Llama, cfg: LlamaConfig,
+                              xc: torch.Tensor, rope_pos: torch.Tensor,
+                              write_pos: torch.Tensor,
+                              cache: Dict[str, torch.Tensor]):
+    """Batched speculative-verification step: run C token embeddings per
+    row (`xc [B, C, D]`) at RoPE positions `rope_pos [B, C]`, writing each
+    row's C K/V entries at the contiguous slots starting `write_pos [B]`
+    (ragged rows); chunk token c of row b attends to row b's keys
+    j <= write_pos[b] + c (`chunk_attention_batched`, kernel E on the
+    card). Rows are unpadded (the JAX function's `starts` are 0, the
+    serving layout). Entries past a row's accepted point are stale but
+    harmless: the mask excludes them and the next chunk overwrites them.
+    Returns (h [B, C, D], cache)."""
+    B, C, _ = xc.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = cache["k"].device
+    S = cache["k"].shape[3]
+    cos, sin = rope_tables(cfg, rope_pos)              # [B, C, Dh/2]
+    # as jax.lax.dynamic_update_slice: the start is clamped so the C
+    # entries fit
+    start = write_pos.long().clamp(0, S - C)
+    index = (torch.arange(B, device=dev)[:, None, None],
+             torch.arange(KV, device=dev)[None, :, None],
+             (start[:, None] + torch.arange(C, device=dev))[:, None, :])
+    offs = write_pos.to(torch.int32)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    ks_all, vs_all = _scales(cache)
+    x = xc
+    for l, layer in enumerate(model.layers):
+        h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
+        q, k, v = _qkv(layer, cfg, h, cos, sin)
+        _put(cache, l, index, *_cache_entries(cache, k.transpose(1, 2),
+                                              v.transpose(1, 2)))
+        out = chunk_attention_batched(q, cache["k"], cache["v"], offs,
+                                      layer=l, k_scale=ks_all,
+                                      v_scale=vs_all, rows=rows)
+        x = x + out.reshape(B, C, H * Dh) @ layer.wo
+        h2 = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
+        x = x + _mlp_block(layer, h2)
+    return rms_norm(x, model.final_norm, cfg.rms_norm_eps), cache
+
+
+def decode_step_with_chunk(model: Llama, cfg: LlamaConfig, x: torch.Tensor,
+                           pos: torch.Tensor, cache: Dict[str, torch.Tensor],
+                           cache_idx: torch.Tensor, chunk: torch.Tensor,
+                           chunk_pos: torch.Tensor, chunk_mask: torch.Tensor,
+                           fill_slot: torch.Tensor):
+    """One decode step for every row PLUS one prompt chunk for row
+    `fill_slot`, fused so the chunk's projections and MLP share the decode
+    step's matmuls (one [B + C]-row product per weight).
+
+    x [B,1,D] decode inputs; pos [B,1] / cache_idx [B] per-row ragged
+    positions; chunk [C,D] prompt-chunk embeddings for row fill_slot (an
+    int or 0-d tensor); chunk_pos [C] absolute positions (contiguous from
+    chunk_pos[0]); chunk_mask [C] bool: False tokens keep the cache's old
+    entries and scales, and their hiddens are junk. The decode rows write
+    first (the fill row's junk write lands where the scheduler parked its
+    cache_idx), then the chunk. Returns (h_dec [B,1,D], h_chunk [C,D],
+    cache)."""
+    B = x.shape[0]
+    C = chunk.shape[0]
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = cache["k"].device
+    S = cache["k"].shape[3]
+    lengths = (cache_idx + 1).to(torch.int32)
+    all_pos = torch.cat([pos[:, 0], chunk_pos.to(pos.dtype)])[None]
+    cos, sin = rope_tables(cfg, all_pos)               # [1, B + C, Dh/2]
+    xc = chunk[None].to(x.dtype)                       # [1, C, D]
+    kv_idx = torch.arange(KV, device=dev)
+    dec_index = (torch.arange(B, device=dev)[:, None], kv_idx[None, :],
+                 cache_idx.clamp(max=S - 1).long()[:, None])
+    slot = torch.as_tensor(fill_slot, device=dev).long().reshape(1, 1)
+    slot32, chunk_off = slot.reshape(1).to(torch.int32), \
+        chunk_pos[:1].to(torch.int32)
+    # as jax.lax.dynamic_slice / dynamic_update_slice: clamped start
+    c0 = chunk_pos[:1].long().clamp(0, S - C)
+    chunk_index = (slot, kv_idx[:, None],
+                   (c0 + torch.arange(C, device=dev))[None, :])
+    sel = chunk_mask.to(torch.bool)[None, :]           # [1, C] over [KV, C]
+    ks_all, vs_all = _scales(cache)
+    for l, layer in enumerate(model.layers):
+        h_d = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
+        h_c = rms_norm(xc, layer.input_norm, cfg.rms_norm_eps)
+        hcat = torch.cat([h_d[:, 0][None], h_c], dim=1)      # [1, B + C, D]
+        q, k, v = _qkv(layer, cfg, hcat, cos, sin)
+        _put(cache, l, dec_index, *_cache_entries(cache, k[0, :B], v[0, :B]))
+        new = _cache_entries(cache, k[0, B:].transpose(0, 1),
+                             v[0, B:].transpose(0, 1))  # [KV, C, (Dh)]
+        names = ("k", "v", "k_scale", "v_scale")
+        kept = [None if n is None else torch.where(
+            sel[..., None] if n.dim() == 3 else sel, n,
+            cache[name][l][chunk_index])
+            for name, n in zip(names, new)]
+        _put(cache, l, chunk_index, *kept)
+        out_d = decode_attention(q[0, :B], cache["k"], cache["v"], lengths,
+                                 layer=l, k_scale=ks_all, v_scale=vs_all)
+        out_c = chunk_attention(q[0, B:], cache["k"], cache["v"], slot32,
+                                chunk_off, layer=l, k_scale=ks_all,
+                                v_scale=vs_all)
+        ocat = torch.cat([out_d.reshape(B, H * Dh),
+                          out_c.reshape(C, H * Dh)])[None]
+        proj = ocat @ layer.wo                          # [1, B + C, D]
+        x = x + proj[0, :B][:, None]
+        xc = xc + proj[:, B:]
+        h2_d = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
+        h2_c = rms_norm(xc, layer.post_attn_norm, cfg.rms_norm_eps)
+        mlp = _mlp_block(layer, torch.cat([h2_d[:, 0][None], h2_c], dim=1))
+        x = x + mlp[0, :B][:, None]
+        xc = xc + mlp[:, B:]
+    x = rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    xc = rms_norm(xc, model.final_norm, cfg.rms_norm_eps)
+    return x, xc[0], cache

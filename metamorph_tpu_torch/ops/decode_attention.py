@@ -1,22 +1,35 @@
-"""Decode attention (counterpart of `metamorph_tpu/ops/decode_attention.py`).
+"""Decode and chunk attention (counterpart of
+`metamorph_tpu/ops/decode_attention.py`).
 
-Kernel B of the port: `csrc/decode_attn.cu` replaces the Pallas TPU kernel
-`_decode_kernel` (bf16 cache). One query token per batch row attends to the
-row's valid cache window [start, length). CPU tensors take the plain
-PyTorch version (`decode_attention_plain`, the counterpart of
-`decode_attention_xla`); CUDA tensors launch the kernel or raise.
+Two hand-written CUDA kernels replace the three Pallas TPU kernels of the
+JAX module:
 
-Pass the whole stacked cache [L, B, KV, S, Dh] plus `layer`: the kernel
-offsets its pointer by the layer, so no per-layer slice is copied.
+  * kernel B, `csrc/decode_attn.cu`, replaces `_decode_kernel`: one query
+    token per batch row attends to the row's valid cache window
+    [start, length). It has a bf16 instance and an int8 one (the cache
+    holds int8 entries plus fp32 per-(token, kv head) scales, applied to
+    the score and to the probability, never to a dequantized slab);
+  * kernel E, `csrc/chunk_attn.cu`, replaces `_chunk_kernel` (chunked fill:
+    a C-token prompt chunk of one cache row, `chunk_attention`) and
+    `_chunk_kernel_batched` (speculative verification: every row's C-token
+    chunk against its own row, `chunk_attention_batched`). Key j is visible
+    to chunk token c iff j <= off + c; entries past the chunk may be stale
+    and only the mask keeps them out. bf16 and int8 instances.
 
-A row whose window is empty gets 0, as in the Pallas kernel. The int8
-cache branch and the chunk kernels (`chunk_attention*`) are not ported.
+CPU tensors take the plain PyTorch versions (`decode_attention_plain`, the
+counterpart of `decode_attention_xla`, and `chunk_attention_plain`): fp32
+einsums over the dequantized slab. CUDA tensors launch a kernel or raise.
+
+Pass the whole stacked cache [L, B, KV, S, Dh] (and scales [L, B, KV, S])
+plus `layer`: the kernels offset their pointers by the layer, so no
+per-layer slice is copied. A decode row whose window is empty gets 0, as in
+the Pallas kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -25,23 +38,39 @@ from metamorph_tpu_torch.kernels._build import Kernel
 NEG_INF = -1e30
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F = ctypes.c_float
 DECODE_ATTN = Kernel("mm_decode_attn_bf16",
-                     [_P] * 6 + [_I] * 5 + [_L] * 3 + [ctypes.c_float, _P])
+                     [_P] * 6 + [_I] * 5 + [_L] * 3 + [_F, _P])
+DECODE_ATTN_INT8 = Kernel("mm_decode_attn_int8",
+                          [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P])
+CHUNK_ATTN = Kernel("mm_chunk_attn_bf16",
+                    [_P] * 6 + [_I] * 6 + [_L] * 3 + [_F, _P])
+CHUNK_ATTN_INT8 = Kernel("mm_chunk_attn_int8",
+                         [_P] * 8 + [_I] * 6 + [_L] * 6 + [_F, _P])
+
+
+def _dequant(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
+    x = x.float()
+    return x if scale is None else x * scale.float()[..., None]
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            lengths: torch.Tensor,
                            starts: Optional[torch.Tensor] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Plain PyTorch version over one layer's cache: q [B,H,Dh], k/v
-    [B,KV,S,Dh], lengths/starts [B]. fp32 math; returns [B,H,Dh] in
-    q.dtype. The grouped einsum never materializes repeated K/V heads."""
+    [B,KV,S,Dh] (int8 with k_scale/v_scale [B,KV,S]), lengths/starts [B].
+    fp32 math; returns [B,H,Dh] in q.dtype. The grouped einsum never
+    materializes repeated K/V heads."""
     B, H, Dh = q.shape
     KV, S = k.shape[1], k.shape[2]
     G = H // KV
     scale = scale if scale is not None else Dh ** -0.5
     qg = q.float().reshape(B, KV, G, Dh)
-    s = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
+    s = torch.einsum("bkgd,bksd->bkgs", qg, _dequant(k, k_scale)) * scale
     pos = torch.arange(S, device=q.device)[None, :]
     mask = pos < lengths.to(q.device)[:, None]
     if starts is not None:
@@ -51,28 +80,63 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
     l = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(l == 0, torch.ones_like(l), l)
-    o = torch.einsum("bkgs,bksd->bkgd", p, v.float())
+    o = torch.einsum("bkgs,bksd->bkgd", p, _dequant(v, v_scale))
     return o.reshape(B, H, Dh).to(q.dtype)
 
 
-def _launch(q, k, v, lengths, starts, layer: Optional[int],
-            scale: float) -> torch.Tensor:
-    B, H, Dh = q.shape
+def chunk_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          offs: torch.Tensor, scale: Optional[float] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of kernel E: q [NB,C,H,Dh] (chunk nb's C
+    queries), k/v [NB,KV,S,Dh] (the cache row each chunk reads; int8 with
+    scales [NB,KV,S]), offs [NB]: chunk token c of chunk nb sees keys
+    j <= offs[nb] + c. fp32 math; returns [NB,C,H,Dh] in q.dtype."""
+    NB, C, H, Dh = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else Dh ** -0.5
+    qg = q.float().reshape(NB, C, KV, G, Dh)
+    s = torch.einsum("nckgd,nksd->nkgcs", qg, _dequant(k, k_scale)) * scale
+    last = offs.to(q.device).long()[:, None] + torch.arange(C, device=q.device)
+    mask = torch.arange(S, device=q.device)[None, None, :] <= last[..., None]
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("nkgcs,nksd->nckgd", p, _dequant(v, v_scale))
+    return o.reshape(NB, C, H, Dh).to(q.dtype)
+
+
+def _check_cache(q, k, v, k_scale, v_scale, layer, B_q: Optional[int]):
+    """Device, dtype, layout and shape checks shared by kernels B and E.
+    Returns (KV, S)."""
     dev = q.device
-    stacked = k.dim() == 5
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    quant = k_scale is not None
+    if (v_scale is not None) != quant:
+        raise ValueError("k_scale and v_scale go together")
+    want = torch.int8 if quant else torch.bfloat16
+    for name, x, dt in (("q", q, torch.bfloat16), ("k", k, want),
+                        ("v", v, want)):
         if not x.is_cuda or x.device != dev:
             raise ValueError(f"{name} must be a CUDA tensor on {dev}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {x.dtype}")
+        if x.dtype != dt:
+            raise ValueError(f"{name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if k.shape != v.shape:
         raise ValueError("k and v caches differ in shape")
+    if quant:
+        for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (x.device != dev or x.dtype != torch.float32
+                    or not x.is_contiguous()
+                    or x.shape != k.shape[:-1]):
+                raise ValueError(f"{name} must be a contiguous float32 "
+                                 f"{tuple(k.shape[:-1])} tensor on {dev}")
+    H, Dh = q.shape[-2], q.shape[-1]
     KV, S = k.shape[-3], k.shape[-2]
-    if k.shape[-4] != B or k.shape[-1] != Dh:
+    if k.shape[-1] != Dh or (B_q is not None and k.shape[-4] != B_q):
         raise ValueError(f"cache {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
     if H % KV or H // KV not in (1, 2, 4, 8):
@@ -80,22 +144,51 @@ def _launch(q, k, v, lengths, starts, layer: Optional[int],
                          f"(1, 2, 4, 8)")
     if Dh not in (64, 128):
         raise ValueError(f"head dim {Dh} unsupported by the kernel (64, 128)")
-    if stacked and not 0 <= layer < k.shape[0]:
+    if k.dim() == 5 and not 0 <= layer < k.shape[0]:
         raise ValueError(f"layer {layer} out of range for {k.shape[0]}")
-    for name, x in (("lengths", lengths), ("starts", starts)):
-        if x is not None and (x.device != dev or x.dtype != torch.int32
-                              or x.shape != (B,) or not x.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int32 [B] tensor "
-                             f"on {dev}")
+    return KV, S
+
+
+def _int32_vec(name: str, x: torch.Tensor, n: int, dev) -> None:
+    if (x.device != dev or x.dtype != torch.int32 or x.shape != (n,)
+            or not x.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous int32 [{n}] tensor "
+                         f"on {dev}")
+
+
+def _scale_args(k, k_scale, v_scale, layer):
+    """Pointers, layer offset and strides of the scale planes."""
+    return (k_scale.data_ptr(), v_scale.data_ptr(),
+            layer * k_scale.stride(0) if k.dim() == 5 else 0,
+            k_scale.stride(-3), k_scale.stride(-2))
+
+
+def _launch_decode(q, k, v, lengths, starts, layer: Optional[int],
+                   scale: float, k_scale, v_scale) -> torch.Tensor:
+    B, H, Dh = q.shape
+    dev = q.device
+    KV, S = _check_cache(q, k, v, k_scale, v_scale, layer, B)
+    _int32_vec("lengths", lengths, B, dev)
+    if starts is not None:
+        _int32_vec("starts", starts, B, dev)
     o = torch.empty((B, H, Dh), dtype=q.dtype, device=dev)
-    layer_off = layer * k.stride(0) if stacked else 0
+    layer_off = layer * k.stride(0) if k.dim() == 5 else 0
+    st_ptr = None if starts is None else starts.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        DECODE_ATTN.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if starts is None else starts.data_ptr(),
-            lengths.data_ptr(), B, H, KV, S, Dh,
-            layer_off, k.stride(-4), k.stride(-3), float(scale), stream)
+        if k_scale is None:
+            DECODE_ATTN.launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                st_ptr, lengths.data_ptr(), B, H, KV, S, Dh,
+                layer_off, k.stride(-4), k.stride(-3), float(scale), stream)
+        else:
+            ksp, vsp, sc_off, sc_sb, sc_sh = _scale_args(k, k_scale, v_scale,
+                                                         layer)
+            DECODE_ATTN_INT8.launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
+                o.data_ptr(), st_ptr, lengths.data_ptr(), B, H, KV, S, Dh,
+                layer_off, k.stride(-4), k.stride(-3), sc_off, sc_sb, sc_sh,
+                float(scale), stream)
     return o
 
 
@@ -103,15 +196,104 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor,
                      starts: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None,
-                     layer: Optional[int] = None) -> torch.Tensor:
+                     layer: Optional[int] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B,H,Dh]; k/v [B,KV,S,Dh], or the stacked [L,B,KV,S,Dh] with
     `layer`; lengths [B] int32 (valid keys end, exclusive); starts [B]
-    int32 (valid keys begin) or None. Returns [B,H,Dh] in q.dtype."""
+    int32 (valid keys begin) or None. With k_scale/v_scale ([(L,) B,KV,S]
+    fp32) the cache is int8. Returns [B,H,Dh] in q.dtype."""
     if (k.dim() == 5) != (layer is not None):
         raise ValueError("layer goes with a stacked [L,B,KV,S,Dh] cache")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         if layer is not None:
             k, v = k[layer], v[layer]
-        return decode_attention_plain(q, k, v, lengths, starts, scale)
-    return _launch(q, k, v, lengths, starts, layer, scale)
+            if k_scale is not None:
+                k_scale, v_scale = k_scale[layer], v_scale[layer]
+        return decode_attention_plain(q, k, v, lengths, starts, scale,
+                                      k_scale, v_scale)
+    return _launch_decode(q, k, v, lengths, starts, layer, scale, k_scale,
+                          v_scale)
+
+
+def _launch_chunk(q, k, v, rows, offs, layer: int, scale: float, k_scale,
+                  v_scale, site: str) -> torch.Tensor:
+    NB, C, H, Dh = q.shape
+    dev = q.device
+    if k.dim() != 5:
+        raise ValueError("kernel E reads the stacked [L,B,KV,S,Dh] cache")
+    KV, S = _check_cache(q, k, v, k_scale, v_scale, layer, None)
+    _int32_vec("rows", rows, NB, dev)
+    _int32_vec("offs", offs, NB, dev)
+    o = torch.empty_like(q)
+    layer_off = layer * k.stride(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if k_scale is None:
+            CHUNK_ATTN.launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                rows.data_ptr(), offs.data_ptr(), NB, C, H, KV, S, Dh,
+                layer_off, k.stride(1), k.stride(2), float(scale), stream,
+                site=site)
+        else:
+            ksp, vsp, sc_off, sc_sb, sc_sh = _scale_args(k, k_scale, v_scale,
+                                                         layer)
+            CHUNK_ATTN_INT8.launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
+                o.data_ptr(), rows.data_ptr(), offs.data_ptr(), NB, C, H, KV,
+                S, Dh, layer_off, k.stride(1), k.stride(2), sc_off, sc_sb,
+                sc_sh, float(scale), stream, site=site)
+    return o
+
+
+def _chunk(q, k, v, rows, offs, layer, scale, k_scale, v_scale, site):
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        r = rows.long()
+        ks = vs = None
+        if k_scale is not None:
+            ks, vs = k_scale[layer][r], v_scale[layer][r]
+        return chunk_attention_plain(q, k[layer][r], v[layer][r], offs,
+                                     scale, ks, vs)
+    return _launch_chunk(q, k, v, rows, offs, layer, scale, k_scale, v_scale,
+                         site)
+
+
+def _as_int32(x: Union[int, torch.Tensor], dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32, device=dev).reshape(1)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    slot: Union[int, torch.Tensor],
+                    chunk_off: Union[int, torch.Tensor], layer: int,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Chunked-fill attention (the JAX `chunk_attention`, Pallas K6):
+    q [C,H,Dh], one prompt chunk of cache row `slot` whose first token sits
+    at `chunk_off`, against the stacked cache [L,B,KV,S,Dh] at `layer`;
+    token c reads keys j <= chunk_off + c. `slot` and `chunk_off` are ints
+    or one-element int32 tensors on q's device. Returns [C,H,Dh]."""
+    return _chunk(q[None], k, v, _as_int32(slot, q.device),
+                  _as_int32(chunk_off, q.device), layer, scale, k_scale,
+                  v_scale, "chunk_attention")[0]
+
+
+def chunk_attention_batched(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, offs: torch.Tensor, layer: int,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None,
+                            scale: Optional[float] = None,
+                            rows: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Batched chunk attention (the JAX `chunk_attention_batched`, Pallas
+    K7): q [B,C,H,Dh], row b's chunk against ITS cache row at ITS offset
+    offs[b] (int32 [B]); token c reads keys j <= offs[b] + c. Cache row ==
+    batch row (the serving layout: unpadded rows); `rows` is that identity,
+    int32 [B], which a caller that runs every layer builds once. Returns
+    [B,C,H,Dh]."""
+    if rows is None:
+        rows = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)
+    return _chunk(q, k, v, rows, offs, layer, scale, k_scale, v_scale,
+                  "chunk_attention_batched")

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from metamorph_tpu_torch.config import MetaMorphConfig, resolve_dtype
-from metamorph_tpu_torch.convert import init_params
+from metamorph_tpu_torch.convert import init_params, resolve_device
 from metamorph_tpu_torch.multimodal.packing import PackedBatch, batch_to_arrays
 from metamorph_tpu_torch.train import checkpoint as ckpt_lib
 from metamorph_tpu_torch.train.optimizer import make_optimizer
@@ -76,7 +76,7 @@ def _check_supported(cfg: MetaMorphConfig, args: TrainerArgs,
 
 
 def build_params(cfg: MetaMorphConfig, args: TrainerArgs, seed: int = 0,
-                 device=None):
+                 device="cuda"):
     """Random weights from `seed` in the config's parameter dtype."""
     return init_params(cfg, seed=seed, device=device,
                        dtype=resolve_dtype(cfg.train.param_dtype))
@@ -88,9 +88,12 @@ def _to_device(arrays: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def train(cfg: MetaMorphConfig, args: TrainerArgs,
-          data_iter: Iterable, multihost: bool = False) -> Dict[str, Any]:
-    """data_iter yields (PackedBatch | dict-of-arrays, pixels [N,S,S,3])."""
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+          data_iter: Iterable, multihost: bool = False,
+          device="cuda") -> Dict[str, Any]:
+    """data_iter yields (PackedBatch | dict-of-arrays, pixels [N,S,S,3]).
+    Trains on the card unless the caller passes another `device`; raises
+    when no CUDA device exists and none was named."""
+    device = resolve_device(device)
     n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
     _check_supported(cfg, args, multihost, n_devices)
     rank0_print(f"device: {device}")

@@ -7,8 +7,10 @@ On a machine with an NVIDIA GPU (and no JAX, which tests/conftest.py
 imports):  python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: 2e-2 on bf16 outputs (a bf16 rounding of |o| up to ~4 plus
-the bf16 probability tile the flash kernel feeds its PV product), 2e-3 on
-the fp32 logsumexp (only the order of fp32 sums differs). The backward
+the bf16 probability tile the flash and chunk kernels feed their PV
+products; for the int8 caches the plain version reads the same int8
+entries and scales, so quantization adds nothing), 2e-3 on the fp32
+logsumexp (only the order of fp32 sums differs). The backward
 kernels are held to 3e-2 of max|ref| for each of dq, dk, dv: P and dS
 enter their tensor-core products rounded to bf16 (relative 2**-9 each),
 and the outputs are bf16."""
@@ -18,6 +20,7 @@ import torch
 
 from metamorph_tpu_torch.ops import decode_attention as da
 from metamorph_tpu_torch.ops import flash_attention as fa
+from metamorph_tpu_torch.ops.quant import quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -81,6 +84,129 @@ def test_decode_kernel_matches_plain(dev, G, Dh):
                                         cv[2].float(), lengths, st)
         assert (o.float() - ref).abs().max().item() <= O_TOL
     assert torch.all(o[3] == 0)             # empty window [33, 33)
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+def test_decode_int8_kernel_matches_plain(dev, G, Dh):
+    """Kernel B's int8 branch: int8 entries and per-(token, kv head)
+    scales of a stacked cache, against the plain version on the same int8
+    cache."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    L, B, KV, S = 3, 4, 2, 700
+    q = _randn(gen, dev, B, KV * G, Dh)
+    ck, ks = quantize_kv(torch.randn(L, B, KV, S, Dh, generator=gen,
+                                     device=dev) * 2)
+    cv, vs = quantize_kv(torch.randn(L, B, KV, S, Dh, generator=gen,
+                                     device=dev))
+    lengths = torch.tensor([1, 700, 257, 33], dtype=torch.int32, device=dev)
+    starts = torch.tensor([0, 300, 256, 33], dtype=torch.int32, device=dev)
+    for st in (None, starts):
+        n0 = da.DECODE_ATTN_INT8.launches
+        o = da.decode_attention(q, ck, cv, lengths, starts=st, layer=2,
+                                k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert da.DECODE_ATTN_INT8.launches == n0 + 1
+        ref = da.decode_attention_plain(q.float(), ck[2], cv[2], lengths, st,
+                                        k_scale=ks[2], v_scale=vs[2])
+        assert (o.float() - ref).abs().max().item() <= O_TOL
+    assert torch.all(o[3] == 0)             # empty window [33, 33)
+
+
+def _chunk_case(dev, quant, NB, C, H, KV, Dh, offs, seed):
+    """q [NB, C, H, Dh] and a stacked cache whose entries past each chunk
+    are large stale values (only the mask keeps them out)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, B, S = 2, 5, 600
+    q = _randn(gen, dev, NB, C, H, Dh)
+    k = torch.randn(L, B, KV, S, Dh, generator=gen, device=dev)
+    v = torch.randn(L, B, KV, S, Dh, generator=gen, device=dev)
+    rows = list(range(NB)) if NB > 1 else [3]
+    for r, off in zip(rows, offs):
+        k[:, r, :, off + C:] = 30.0
+        v[:, r, :, off + C:] = -50.0
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    return q, k, v, ks, vs, rows
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("form,C,H,KV,offs", [
+    ("verify", 4, 32, 8, [0, 1, 77, 300, 592]),     # G*C = 16: 16-row CTAs
+    ("verify", 3, 8, 1, [5, 0, 64, 597, 128]),      # G*C = 24
+    ("fill", 256, 32, 8, [255]),                     # G*C = 1024
+    ("fill", 100, 4, 4, [0]),                        # MHA, ragged last tile
+    ("fill", 37, 16, 2, [600 - 37]),                 # G = 8, offset S - C
+])
+def test_chunk_kernel_matches_plain(dev, quant, Dh, form, C, H, KV, offs):
+    """Kernel E in its K7 form (`chunk_attention_batched`, every row at its
+    own offset) and its K6 form (`chunk_attention`, one chunk of one row)
+    against `chunk_attention_plain` on the same cache."""
+    NB = len(offs)
+    q, k, v, ks, vs, rows = _chunk_case(dev, quant, NB, C, H, KV, Dh, offs,
+                                        seed=5 + C)
+    kern = da.CHUNK_ATTN_INT8 if quant else da.CHUNK_ATTN
+    n0 = kern.launches
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    for layer in (0, 1):
+        if form == "verify":
+            o = da.chunk_attention_batched(q, k, v, offs_t, layer=layer,
+                                           k_scale=ks, v_scale=vs)
+        else:
+            o = da.chunk_attention(q[0], k, v, rows[0], offs[0], layer=layer,
+                                   k_scale=ks, v_scale=vs)[None]
+        torch.cuda.synchronize()
+        r = torch.tensor(rows, device=dev)
+        ref = da.chunk_attention_plain(
+            q.float(), k[layer][r], v[layer][r], offs_t,
+            k_scale=None if ks is None else ks[layer][r],
+            v_scale=None if vs is None else vs[layer][r])
+        assert o.dtype == torch.bfloat16 and torch.isfinite(o).all()
+        assert (o.float() - ref).abs().max().item() <= O_TOL
+    site = ("chunk_attention_batched" if form == "verify"
+            else "chunk_attention")
+    assert kern.launches == n0 + 2 and kern.sites[site] >= 2
+
+
+def test_int8_and_chunk_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Wrong dtypes, missing or mis-shaped scales, offsets of the wrong
+    length and non-contiguous inputs raise before any launch."""
+    q = torch.randn(2, 4, 8, 128, device=dev, dtype=torch.bfloat16)
+    c8, sc = quantize_kv(torch.randn(2, 2, 2, 64, 128, device=dev))
+    cb = c8.to(torch.bfloat16)
+    offs = torch.tensor([3, 9], dtype=torch.int32, device=dev)
+    n = torch.tensor([3, 9], dtype=torch.int32, device=dev)
+    counts = (da.CHUNK_ATTN.launches, da.CHUNK_ATTN_INT8.launches,
+              da.DECODE_ATTN_INT8.launches)
+    bad = [
+        lambda: da.chunk_attention_batched(q, c8, c8, offs, layer=0),
+        lambda: da.chunk_attention_batched(q, cb, cb, offs, layer=0,
+                                           k_scale=sc, v_scale=sc),
+        lambda: da.chunk_attention_batched(q.float(), cb, cb, offs,
+                                           layer=0),
+        lambda: da.chunk_attention_batched(q, cb, cb, offs[:1], layer=0),
+        lambda: da.chunk_attention_batched(q, cb, cb, offs.long(), layer=0),
+        lambda: da.chunk_attention_batched(q.transpose(1, 2), cb, cb, offs,
+                                           layer=0),
+        lambda: da.chunk_attention_batched(q, c8, c8, offs, layer=0,
+                                           k_scale=sc.transpose(2, 3),
+                                           v_scale=sc),
+        lambda: da.chunk_attention(q[0], c8, c8, 0, 2, layer=2, k_scale=sc,
+                                   v_scale=sc),
+        lambda: da.decode_attention(q[:, 0], c8, c8, n, layer=0,
+                                    k_scale=sc),
+        lambda: da.decode_attention(q[:, 0], c8, c8, n, layer=0,
+                                    k_scale=sc[..., :32].contiguous(),
+                                    v_scale=sc),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert counts == (da.CHUNK_ATTN.launches, da.CHUNK_ATTN_INT8.launches,
+                      da.DECODE_ATTN_INT8.launches)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

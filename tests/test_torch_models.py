@@ -44,7 +44,7 @@ VIS_TOL = dict(rtol=1e-5, atol=1e-5)
 def pair():
     jp = JM.init_metamorph_params(jax.random.PRNGKey(3), JCFG,
                                   dtype=jnp.float32)
-    model = from_jax_params(jax.tree.map(np.asarray, jp), CFG)
+    model = from_jax_params(jax.tree.map(np.asarray, jp), CFG, device="cpu")
     return jp, model
 
 
@@ -175,9 +175,9 @@ def test_vision_head_and_fusion_match_jax(pair):
 def test_init_params_scales_and_determinism():
     """init_params follows the JAX init scales and is a function of the
     seed."""
-    a = init_params(CFG, seed=0, dtype=torch.float32)
-    b = init_params(CFG, seed=0, dtype=torch.float32)
-    c = init_params(CFG, seed=1, dtype=torch.float32)
+    a = init_params(CFG, seed=0, device="cpu", dtype=torch.float32)
+    b = init_params(CFG, seed=0, device="cpu", dtype=torch.float32)
+    c = init_params(CFG, seed=1, device="cpu", dtype=torch.float32)
     assert torch.equal(a.llama.layers[0].wq, b.llama.layers[0].wq)
     assert not torch.equal(a.llama.layers[0].wq, c.llama.layers[0].wq)
     D = CFG.llama.hidden_size

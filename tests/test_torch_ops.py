@@ -1,14 +1,16 @@
 """PyTorch port, attention ops: the plain versions behind the kernel
 wrappers (what CPU tensors run) against the JAX package's Pallas kernels in
-interpret mode — forward, and the backward through the port's autograd
-Function against `jax.grad` through the JAX custom VJP — plus the
-wrappers' routing and the package's JAX-free imports.
+interpret mode — forward (flash, decode with bf16-valued and int8 caches,
+the fill and verify chunk kernels), and the backward through the port's
+autograd Function against `jax.grad` through the JAX custom VJP — plus
+`quantize_kv`, the wrappers' routing and the package's JAX-free imports.
 
 Tolerances: both sides compute in fp32 on the CPU; they differ only in the
 order of the fp32 sums (the Pallas kernels stream key blocks with an online
 softmax, the port's plain versions take one softmax over all keys), so
 2e-5 absolute/relative, the JAX package's own kernel-vs-XLA tolerance, on
-outputs; gradients are sums over up to 512 keys of such terms, so 1e-4
+flash outputs and 1e-5 on the decode and chunk outputs (fewer, shorter
+sums); gradients are sums over up to 512 keys of such terms, so 1e-4
 (the JAX package holds its backward to 2e-4 against XLA). The plain
 backward against autograd through the plain forward: 1e-5 (the same fp32
 products, another association)."""
@@ -23,14 +25,20 @@ import numpy as np
 import pytest
 import torch
 
+from metamorph_tpu.ops import quant as jquant
+from metamorph_tpu.ops.decode_attention import chunk_attention as jax_chunk
+from metamorph_tpu.ops.decode_attention import \
+    chunk_attention_batched as jax_chunk_batched
 from metamorph_tpu.ops.decode_attention import decode_attention as jax_decode
 from metamorph_tpu.ops.flash_attention import flash_attention as jax_flash
 from metamorph_tpu.ops.flash_attention import \
     flash_attention_with_lse as jax_flash_lse
 from metamorph_tpu_torch.ops import decode_attention as da
 from metamorph_tpu_torch.ops import flash_attention as fa
+from metamorph_tpu_torch.ops.quant import quantize_kv
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+ATT_TOL = dict(rtol=1e-5, atol=1e-5)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -187,6 +195,120 @@ def test_decode_unstacked_cache_and_empty_window():
                             layer=0)
 
 
+def _bf16_valued(x):
+    """fp32 values that a bf16 cache holds."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _int8_cache(k, v):
+    """(k int8, v int8, k_scale, v_scale) as numpy, quantized by the JAX
+    package's quantize_kv."""
+    kq, ks = jquant.quantize_kv(jnp.asarray(k))
+    vq, vs = jquant.quantize_kv(jnp.asarray(v))
+    return tuple(np.array(a) for a in (kq, vq, ks, vs))
+
+
+def test_quantize_kv_matches_jax():
+    """Same int8 entries (a +-1 step allowed on <= 0.1 % of them, where an
+    fp32 quotient lands on a half) and scales within 1e-6."""
+    x = _np((3, 2, 4, 50, 64), 40) * 3.0
+    x[0, 0, 0, 0] = 0.0                      # an all-zero vector: scale 1e-8/127
+    q_ref, s_ref = (np.asarray(a) for a in jquant.quantize_kv(jnp.asarray(x)))
+    q, s = quantize_kv(torch.from_numpy(x))
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_allclose(s.numpy(), s_ref, rtol=1e-6, atol=0)
+    diff = np.abs(q.numpy().astype(np.int32) - q_ref.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    assert np.abs(q.numpy()).max() == 127
+
+
+@pytest.mark.parametrize("layer,with_starts", [(0, False), (1, True)])
+def test_decode_int8_plain_matches_jax_kernel(layer, with_starts):
+    """int8 cache with per-(token, kv head) scales, stacked with a layer:
+    the plain version against the Pallas decode kernel's int8 branch."""
+    L, B, H, KV, S, Dh = 2, 3, 8, 2, 256, 64
+    q = _np((B, H, Dh), 41)
+    kq, vq, ks, vs = _int8_cache(_np((L, B, KV, S, Dh), 42),
+                                 _np((L, B, KV, S, Dh), 43))
+    lengths = np.asarray([17, 256, 130], np.int32)
+    starts = np.asarray([3, 0, 100], np.int32) if with_starts else None
+    ref = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(lengths),
+        starts=None if starts is None else jnp.asarray(starts), block_s=64,
+        layer=layer, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    t = torch.from_numpy
+    out = da.decode_attention(
+        t(q), t(kq), t(vq), t(lengths),
+        starts=None if starts is None else t(starts), layer=layer,
+        k_scale=t(ks), v_scale=t(vs)).numpy()
+    np.testing.assert_allclose(out, ref, **ATT_TOL)
+
+
+def _chunk_cache(quant, seed, L=2, B=3, KV=2, S=64, Dh=32, junk_from=None):
+    """Stacked cache as numpy (bf16-valued fp32, or int8 + scales). Rows
+    listed in `junk_from` {row: position} get large stale values from that
+    position on: only the mask keeps them out."""
+    k, v = _np((L, B, KV, S, Dh), seed), _np((L, B, KV, S, Dh), seed + 1)
+    for row, p in (junk_from or {}).items():
+        k[:, row, :, p:] = 40.0
+        v[:, row, :, p:] = -60.0
+    if quant:
+        return _int8_cache(k, v)
+    return _bf16_valued(k), _bf16_valued(v), None, None
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_chunk_plain_matches_jax_fill_kernel(quant):
+    """`chunk_attention` (kernel E's K6 form) against the Pallas
+    `_chunk_kernel`: several slots and offsets, offset 0 and S - C, stale
+    junk past the chunk."""
+    S, C, H, Dh = 64, 8, 4, 32
+    for slot, off in ((0, 0), (2, 24), (1, S - C)):
+        k, v, ks, vs = _chunk_cache(quant, 44 + off, S=S, Dh=Dh,
+                                    junk_from={slot: off + C})
+        q = _np((C, H, Dh), 45 + slot)
+        for layer in (0, 1):
+            jkw = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                             v_scale=jnp.asarray(vs))
+            ref = np.asarray(jax_chunk(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.int32(slot),
+                                       jnp.int32(off), layer=layer,
+                                       block_s=16, **jkw))
+            tkw = {} if ks is None else dict(k_scale=torch.from_numpy(ks),
+                                             v_scale=torch.from_numpy(vs))
+            out = da.chunk_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), slot, off,
+                                     layer=layer, **tkw).numpy()
+            np.testing.assert_allclose(out, ref, **ATT_TOL,
+                                       err_msg=f"slot {slot} off {off}")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_chunk_batched_plain_matches_jax_verify_kernel(quant):
+    """`chunk_attention_batched` (kernel E's K7 form) against the Pallas
+    `_chunk_kernel_batched`: ragged offsets including 0 and S - C, stale
+    junk past each row's chunk."""
+    B, S, C, H, Dh = 3, 64, 4, 8, 32
+    offs = np.asarray([0, 37, S - C], np.int32)
+    k, v, ks, vs = _chunk_cache(quant, 46, B=B, S=S, Dh=Dh,
+                                junk_from={b: int(o) + C
+                                           for b, o in enumerate(offs)})
+    q = _np((B, C, H, Dh), 47)
+    for layer in (0, 1):
+        jkw = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                         v_scale=jnp.asarray(vs))
+        ref = np.asarray(jax_chunk_batched(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(offs),
+            layer=layer, block_s=16, **jkw))
+        tkw = {} if ks is None else dict(k_scale=torch.from_numpy(ks),
+                                         v_scale=torch.from_numpy(vs))
+        out = da.chunk_attention_batched(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(offs), layer=layer, **tkw).numpy()
+        np.testing.assert_allclose(out, ref, **ATT_TOL)
+
+
 def _grads_port(q, k, v, loss):
     qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     loss(qt, kt, vt).backward()
@@ -298,24 +420,38 @@ def test_flash_bwd_plain_matches_autograd(B, H, KV, T, S, lens, causal):
 
 
 def test_cpu_tensors_take_plain_path_and_count_no_launch():
-    """CPU tensors run the plain versions and leave both launch counters
+    """CPU tensors run the plain versions and leave every launch counter
     at 0; a tensor on another device (meta) goes to the kernel route and is
     refused there with no launch."""
-    a0, b0 = fa.FLASH_FWD.launches, da.DECODE_ATTN.launches
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
+               da.DECODE_ATTN, da.DECODE_ATTN_INT8, da.CHUNK_ATTN,
+               da.CHUNK_ATTN_INT8)
     q = torch.randn(1, 16, 4, 64, requires_grad=True)
     k = torch.randn(1, 16, 2, 64)
     fa.flash_attention(q, k, k).sum().backward()     # plain fwd + bwd
     fa.flash_attention_with_lse(q.transpose(1, 2), k.transpose(1, 2),
                                 k.transpose(1, 2))
     cache = torch.randn(2, 1, 2, 16, 64)
-    da.decode_attention(q[:, 0], cache, cache,
+    qd = q.detach()
+    da.decode_attention(qd[:, 0], cache, cache,
                         torch.tensor([9], dtype=torch.int32), layer=1)
+    c8, sc = quantize_kv(cache)
+    da.decode_attention(qd[:, 0], c8, c8, torch.tensor([9], dtype=torch.int32),
+                        layer=1, k_scale=sc, v_scale=sc)
+    da.chunk_attention(qd[0, :4], c8, c8, 0, 3, layer=0, k_scale=sc,
+                       v_scale=sc)
+    da.chunk_attention_batched(qd[:, :4], cache, cache,
+                               torch.tensor([2], dtype=torch.int32), layer=1)
     meta = torch.empty(1, 16, 4, 64, device="meta", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(meta, meta[:, :, :2], meta[:, :, :2])
-    assert fa.FLASH_FWD.launches == a0 == 0
-    assert da.DECODE_ATTN.launches == b0 == 0
-    assert fa.FLASH_BWD_DQ.launches == fa.FLASH_BWD_DKV.launches == 0
+    with pytest.raises(ValueError):
+        da.chunk_attention_batched(meta[:, :4], cache.to("meta"),
+                                   cache.to("meta"),
+                                   torch.zeros(1, dtype=torch.int32,
+                                               device="meta"), layer=0)
+    assert [kern.launches for kern in kernels] == [0] * len(kernels)
+    assert all(not kern.sites for kern in kernels)
 
 
 def test_package_imports_without_jax():

@@ -60,7 +60,8 @@ def _serve_both(params):
     for r in reqs:
         jeng.submit(JRequest(**r))
     ref = {c.uid: c for c in jeng.run()}
-    model = from_jax_params(jax.tree.map(np.asarray, params), CFG)
+    model = from_jax_params(jax.tree.map(np.asarray, params), CFG,
+                            device="cpu")
     eng = ServeEngine(model, CFG, **ENGINE)
     for r in reqs:
         eng.submit(Request(**r))
@@ -100,9 +101,12 @@ def test_port_engine_matches_jax_engine(jax_params, variant):
 
 
 def test_port_engine_rejects_unported_options(jax_params):
-    model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG)
-    for kw in (dict(spec_k=4), dict(fill_chunk=8), dict(kv_int8=True),
-               dict(shared_prefix_ids=[1, 2, 3])):
+    model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
+                            device="cpu")
+    draft = (jax_params["llama"], JCFG.llama)
+    for kw in (dict(spec_k=4, draft=draft), dict(draft=draft),
+               dict(shared_prefix_ids=[1, 2, 3]),
+               dict(kv_int8=True, shared_prefix_ids=[1, 2, 3])):
         with pytest.raises(NotImplementedError):
             ServeEngine(model, CFG, **ENGINE, **kw)
     eng = ServeEngine(model, CFG, **ENGINE)
@@ -117,7 +121,8 @@ def test_port_engine_rejects_unported_options(jax_params):
 def test_port_engine_sampling_is_seeded(jax_params):
     """Sampling rows draw from the engine's torch.Generator: the same seed
     gives the same stream; temperature 0 rows stay greedy."""
-    model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG)
+    model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
+                            device="cpu")
 
     def run(seed):
         eng = ServeEngine(model, CFG, seed=seed, **ENGINE)
@@ -141,7 +146,8 @@ def test_port_engine_sampling_is_seeded(jax_params):
 def test_port_embeds_admission_and_streaming_match_ids_path(jax_params):
     """Pre-fused prompt embeddings (`_prefill_admit`) decode exactly like
     the same prompts admitted as ids, and on_token streams every id."""
-    model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG)
+    model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
+                            device="cpu")
     reqs = [r for r in _requests() if r["uid"] != "img"]
     streamed = {}
 

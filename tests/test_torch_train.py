@@ -102,7 +102,7 @@ def jparams():
 
 
 def _port_model(jp, cfg):
-    return from_jax_params(jax.tree.map(np.asarray, jp), cfg)
+    return from_jax_params(jax.tree.map(np.asarray, jp), cfg, device="cpu")
 
 
 def _assert_params_equal(jax_tree, model, tol=PARAM_TOL):
@@ -389,7 +389,7 @@ def test_train_loop_save_prune_and_resume(tmp_path, capsys):
     cfg = trainer_cfg(3)
     args = TrainerArgs(output_dir=str(tmp_path), save_steps=2,
                        logging_steps=1, resume=True)
-    out = train(cfg, args, FakeData(cfg))
+    out = train(cfg, args, FakeData(cfg), device="cpu")
     assert out["step"] == 3 and "loss" in out["metrics"]
     err = capsys.readouterr().err
     assert "step 1: loss=" in err and "step 3: loss=" in err
@@ -406,7 +406,7 @@ def test_train_loop_save_prune_and_resume(tmp_path, capsys):
         open(tmp_path / "step_3" / "config.json").read()) == cfg
 
     cfg2 = trainer_cfg(5)
-    out2 = train(cfg2, args, FakeData(cfg2))
+    out2 = train(cfg2, args, FakeData(cfg2), device="cpu")
     assert out2["step"] == 5
     assert "resuming from" in capsys.readouterr().err
     rows = [json.loads(l) for l in
@@ -420,12 +420,12 @@ def test_train_grad_accum_and_multires(tmp_path):
     cfg = trainer_cfg(2, grad_accum_steps=2)
     out = train(cfg, TrainerArgs(output_dir=str(tmp_path / "a"),
                                  save_steps=10, resume=False),
-                FakeData(cfg))
+                FakeData(cfg), device="cpu")
     assert out["step"] == 2 and np.isfinite(out["metrics"]["loss"])
     cfg = trainer_cfg(3)
     out = train(cfg, TrainerArgs(output_dir=str(tmp_path / "b"),
                                  save_steps=10, resume=False),
-                FakeData(cfg, K_seq=(1, 4, 1)))
+                FakeData(cfg, K_seq=(1, 4, 1)), device="cpu")
     assert out["step"] == 3 and np.isfinite(out["metrics"]["loss"])
     assert out["metrics"]["n_image_ar_tokens"] == 4 * 1
 
@@ -435,7 +435,7 @@ def test_train_rejects_mixed_K_and_unported_options(tmp_path):
     args = TrainerArgs(output_dir=str(tmp_path), save_steps=100,
                        resume=False)
     with pytest.raises(ValueError, match="mixed num_image_tokens"):
-        train(cfg, args, FakeData(cfg, K_seq=(1, 4)))
+        train(cfg, args, FakeData(cfg, K_seq=(1, 4)), device="cpu")
     for bad_cfg, bad_args in (
             (dataclasses.replace(cfg, mesh=MeshConfig(data=2, fsdp=2,
                                                       tensor=2)), args),
@@ -443,4 +443,4 @@ def test_train_rejects_mixed_K_and_unported_options(tmp_path):
             (cfg, dataclasses.replace(args, attn_impl="ring")),
             (cfg, dataclasses.replace(args, hf_llama_path="/nowhere"))):
         with pytest.raises(NotImplementedError):
-            train(bad_cfg, bad_args, FakeData(cfg))
+            train(bad_cfg, bad_args, FakeData(cfg), device="cpu")
