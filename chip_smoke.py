@@ -8,8 +8,10 @@ Phases (any failure raises and the script exits nonzero):
   2. build   — compiles metamorph_tpu_torch/csrc/*.cu with nvcc (sm_90a);
   3. kernels — each hand-written kernel against its plain PyTorch version
                (fp32 math on the same bf16 inputs) at LLaMA-3.1-8B shapes
-               (H=32, KV=8, Dh=128), with max-abs error, tolerance, and the
-               median times of both from CUDA events;
+               (H=32, KV=8, Dh=128; kernel A causal at the 2048 prefill
+               bucket and at T=4096, the train forward), with max-abs error,
+               tolerance, and the times of both from CUDA events; nvcc's
+               `-Xptxas -v` lines (registers, spills, warnings) before it;
   3b. backward kernels — kernels C (dq) and D (dk, dv) against the plain
                backward at 8B shapes, causal and not, ragged, with an lse
                cotangent and an empty row; bitwise equal on a second launch;
@@ -20,9 +22,13 @@ Phases (any failure raises and the script exits nonzero):
                int8, with stale entries past each chunk, against their plain
                versions;
      Every kernel row carries its bound (the larger of bytes over 3.35 TB/s
-     and FLOPs over 989 TFLOP/s, from this run's shapes) and, where one
-     PyTorch call computes the same function, that call's time (SDPA; the
-     port never calls it);
+     and FLOPs over 989 TFLOP/s, from this run's shapes), the FLOP/s and
+     bytes/s it reached and the bound's share of its time, and, where one
+     PyTorch call computes the same function, that call's time (SDPA, with
+     a boolean mask where rows are ragged; the port never calls it). Times
+     are per call over 20 calls queued back to back between two CUDA
+     events; kernels A, C and D (and their SDPA yardsticks) also give the
+     time of one call alone, which includes the wrapper's host time;
   4. reference — a 2-layer model at head dim 128 through prefill + decode on
                the card (kernels) and on the CPU in fp32 (plain versions):
                logits must agree;
@@ -103,6 +109,13 @@ def bound(nbytes: float, flops: float) -> dict:
                 bytes=nbytes, flops=flops)
 
 
+def rates(b: dict, ms: float) -> dict:
+    """What a kernel row achieved: FLOP/s and bytes/s of the work its bound
+    counts, and the bound's share of the measured time."""
+    return dict(tflops=b["flops"] / ms / 1e9, gb_per_s=b["bytes"] / ms / 1e6,
+                bound_share=b["bound_ms"] / ms)
+
+
 def causal_pairs(T: int, lens) -> int:
     """Visible (query, key) pairs of a causal T x T problem with per-row
     key lengths: query i sees keys j <= i, j < len."""
@@ -120,9 +133,34 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Milliseconds per call of `calls` back-to-back calls between two CUDA
+    events (median of `reps`): the host queues the next launch while the
+    card runs this one, so the wrapper's host time hides behind the kernel
+    where the kernel is the longer of the two: the kernel's own time on the
+    card. `cuda_ms_alone` times one call alone,
+    host time included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def cuda_ms_alone(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of fn() over `iters` runs, CUDA events around
-    each run."""
+    each run alone: the card waits for the host to issue the call, so the
+    wrapper's host time is part of it (how the first designs were timed)."""
     import torch
 
     for _ in range(warmup):
@@ -138,6 +176,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def sdpa_mask(fa, lengths, T: int, S: int, causal: bool):
+    """None where SDPA's own causal flag (or no mask) gives the kernels'
+    visibility, else the boolean [B, 1, T, S] mask of it."""
+    if bool((lengths == S).all()) and (T == S or not causal):
+        return None
+    return fa._visible(lengths, T, S, causal, lengths.device)[:, 0]
+
+
+def library_fwd_ms(F, fa, qt, kt, vt, lengths, causal: bool, timer=None
+                   ) -> float:
+    T, S = qt.shape[2], kt.shape[2]
+    mask = sdpa_mask(fa, lengths, T, S, causal)
+    return (timer or cuda_ms)(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True))
 
 
 def phase_kernels(torch, dev):
@@ -156,10 +211,11 @@ def phase_kernels(torch, dev):
                            dtype=torch.float32).to(torch.bfloat16)
 
     # kernel A: (B, T, S, causal, lengths); model layout through
-    # flash_attention (timed), kernel layout + lse through
+    # flash_attention and `_fwd` (timed), kernel layout + lse through
     # flash_attention_with_lse
     cases = [
         (1, 2048, 2048, True, [2048]),          # the main path's 2048 bucket
+        (1, 4096, 4096, True, [4096]),          # the train step's forward
         (1, 1024, 1024, True, [1024]),
         (2, 2048, 2048, True, [2048, 1337]),
         (2, 777, 777, True, [777, 500]),
@@ -179,24 +235,27 @@ def phase_kernels(torch, dev):
         err = max((o.transpose(1, 2).float() - ref_o).abs().max(),
                   (ok.float() - ref_o).abs().max()).item()
         lse_err = (lse - ref_lse).abs().max().item()
-        kern = lambda: fa.flash_attention(q, k, v, attn_mask=mask,
-                                          causal=causal)
+        # timed through the kernel's wrapper on the model-layout views, as
+        # the main paths reach it (without the mask-to-lengths sum)
+        kern = lambda: fa._fwd(qt, kt, vt, lengths, causal, Dh ** -0.5)
         ms = cuda_ms(kern)
+        ms_alone = cuda_ms_alone(kern)
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
             qt, kt, vt, lengths, causal))
         pairs = (causal_pairs(T, lens) if causal else T * sum(lens))
         b = bound(2 * (2 * B * T * H * Dh + 2 * B * S * KV * Dh)
                   + 4 * B * H * T, 4 * Dh * H * pairs)
         # the library's call for the same function: SDPA with GQA, causal
-        # or a boolean key mask
-        library_ms = None
-        if all(n == S for n in lens) and (T == S or not causal):
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True))
+        # where no row is ragged, else with the boolean [B, 1, T, S] mask
+        library_ms = library_fwd_ms(F, fa, qt, kt, vt, lengths, causal)
+        library_ms_alone = library_fwd_ms(F, fa, qt, kt, vt, lengths, causal,
+                                          cuda_ms_alone)
         row = dict(B=B, T=T, S=S, causal=causal, lengths=lens,
                    max_abs_err=err, tol=FLASH_TOL_O, lse_err=lse_err,
-                   lse_tol=FLASH_TOL_LSE, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, **b)
+                   lse_tol=FLASH_TOL_LSE, ms=ms, ms_alone=ms_alone,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library_ms_alone=library_ms_alone, **b,
+                   **rates(b, ms))
         log("kernel A flash_fwd", json.dumps(row))
         if not (err <= FLASH_TOL_O and lse_err <= FLASH_TOL_LSE):
             raise AssertionError(f"flash kernel disagrees with plain: {row}")
@@ -242,7 +301,8 @@ def phase_kernels(torch, dev):
             attn_mask=keymask[:, None, None], enable_gqa=True))
         row = dict(B=B, S=S, layer=layer, starts=st is not None,
                    lengths=lengths.tolist(), max_abs_err=err, tol=DECODE_TOL,
-                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b,
+                   **rates(b, ms))
         log("kernel B decode_attn", json.dumps(row))
         if not err <= DECODE_TOL:
             raise AssertionError(f"decode kernel disagrees with plain: {row}")
@@ -308,14 +368,15 @@ def phase_bwd_kernels(torch, dev):
         delta = (dot.float() * o.float()).sum(-1)
         dd = (delta - dlse if dlse is not None else delta).contiguous()
         dq, dk, dv = got
-        ms_dq = cuda_ms(lambda: fa._launch_dq(qt, kt, vt, dot, lse, dd,
-                                              dq, lengths, causal, scale))
-        ms_dkv = cuda_ms(lambda: fa._launch_dkv(qt, kt, vt, dot, lse, dd,
-                                                dk, dv, lengths, causal,
-                                                scale))
+        dqf = lambda: fa._launch_dq(qt, kt, vt, dot, lse, dd, dq, lengths,
+                                    causal, scale)
+        ms_dq, ms_dq_alone = cuda_ms(dqf), cuda_ms_alone(dqf)
+        dkv = lambda: fa._launch_dkv(qt, kt, vt, dot, lse, dd, dk, dv,
+                                     lengths, causal, scale)
+        ms_dkv, ms_dkv_alone = cuda_ms(dkv), cuda_ms_alone(dkv)
         plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-            qt, kt, vt, o, lse, dot, dlse, lengths, causal, scale), iters=5,
-            warmup=1)
+            qt, kt, vt, o, lse, dot, dlse, lengths, causal, scale), calls=5,
+            reps=3)
         pairs = (causal_pairs(T, lens) if causal else T * sum(lens))
         qkv_do = 2 * (2 * B * T * H * Dh + 2 * B * S * KV * Dh)
         b_dq = bound(qkv_do + 8 * B * H * T + 2 * B * T * H * Dh,
@@ -323,21 +384,29 @@ def phase_bwd_kernels(torch, dev):
         b_dkv = bound(qkv_do + 8 * B * H * T + 4 * B * S * KV * Dh,
                       8 * Dh * H * pairs)
         # the library's backward (dq, dk, dv together) for the same
-        # attention: SDPA with GQA; only where its forward needs no mask
-        library_ms = None
-        if all(n == S for n in lens) and T == S and not with_dlse:
+        # attention: SDPA with GQA, with the boolean mask where a row is
+        # ragged; it takes no lse cotangent, so a dlse row times it without
+        library_ms = library_ms_alone = None
+        if lens[-1] > 0:     # SDPA's backward of an all-masked row is NaN
+            mask = sdpa_mask(fa, lengths, T, S, causal)
             ql, kl, vl = (x.detach().requires_grad_() for x in (qt, kt, vt))
-            out = F.scaled_dot_product_attention(ql, kl, vl,
-                                                 is_causal=causal,
-                                                 enable_gqa=True)
-            library_ms = cuda_ms(lambda: torch.autograd.grad(
-                out, (ql, kl, vl), dot, retain_graph=True), iters=5)
-            del ql, kl, vl, out
+            out = F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+            grad = lambda: torch.autograd.grad(out, (ql, kl, vl), dot,
+                                               retain_graph=True)
+            library_ms = cuda_ms(grad, calls=5, reps=3)
+            library_ms_alone = cuda_ms_alone(grad, iters=5)
+            del ql, kl, vl, out, mask, grad
         row = dict(B=B, T=T, S=S, causal=causal, lengths=lens,
                    dlse=with_dlse, max_abs_err=err, rel_err=rel,
                    tol_rel=BWD_TOL, bitwise_repeat=repeat, ms_dq=ms_dq,
-                   ms_dkv=ms_dkv, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_dq=b_dq, bound_dkv=b_dkv)
+                   ms_dq_alone=ms_dq_alone, ms_dkv=ms_dkv,
+                   ms_dkv_alone=ms_dkv_alone,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library_ms_alone=library_ms_alone,
+                   bound_dq=dict(b_dq, **rates(b_dq, ms_dq)),
+                   bound_dkv=dict(b_dkv, **rates(b_dkv, ms_dkv)))
         log("kernels C/D flash_bwd", json.dumps(row))
         if not (repeat and max(rel.values()) <= BWD_TOL):
             raise AssertionError(f"backward kernels disagree with plain or "
@@ -372,6 +441,7 @@ def phase_option_kernels(torch, dev, S: int = 4096):
         return torch.randn(shape, generator=gen, device=dev)
 
     def check(name, out, ref, row):
+        row.update(rates(row, row["ms"]))
         diff = (out.float() - ref).abs()
         # each (query, head) row against its own magnitude; the floor only
         # guards a row with no visible key, whose output is 0
@@ -480,7 +550,7 @@ def phase_option_kernels(torch, dev, S: int = 4096):
             elem = 1 if quant else 2
             row = dict(form=form, dtype="int8" if quant else "bf16", NB=NB,
                        C=C, S=S, offs=offs, ms=cuda_ms(kern),
-                       plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                       plain_ms=cuda_ms(plain, calls=5, reps=3),
                        library_ms=library_ms,
                        **bound(kv_keys * KV * (2 * Dh * elem
                                                + (8 if quant else 0))
@@ -1053,9 +1123,13 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
 
     def timing(r, ms="ms", b=None):
         b = b or r
-        return {"ms": r[ms], "plain_ms": r["plain_ms"],
-                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                "library_ms": r["library_ms"]}
+        out = {"ms": r[ms], "plain_ms": r["plain_ms"],
+               "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+               "library_ms": r["library_ms"]}
+        if f"{ms}_alone" in r:       # kernels A, C, D: one call alone too
+            out.update(ms_alone=r[f"{ms}_alone"],
+                       library_ms_alone=r["library_ms_alone"])
+        return out
 
     summary = {"kernels": [
         {"name": "flash_fwd", "route": "cuda",
@@ -1065,7 +1139,9 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
          "launches": main_row["launches"]["flash_fwd"]
                      + tl["mm_flash_fwd_bf16"],
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
-         **timing(fl)},
+         **timing(fl),
+         "forms": {f"causal_T{r['T']}": timing(r)
+                   for r in kernel_rows["flash"][:2]}},
         {"name": "decode_attn", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
          "replaces": "metamorph_tpu/ops/decode_attention.py:191",
@@ -1086,7 +1162,9 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
          "launches": tl["mm_flash_bwd_dkv_bf16"],
          "max_abs_err": max(max(r["max_abs_err"]["dk"],
                                 r["max_abs_err"]["dv"]) for r in bwd_rows),
-         **timing(bw, "ms_dkv", bw["bound_dkv"])},
+         **timing(bw, "ms_dkv", bw["bound_dkv"]),
+         "forms": {f"causal_T{r['T']}": timing(r, "ms_dkv", r["bound_dkv"])
+                   for r in bwd_rows[:2]}},
         {"name": "decode_attn_int8", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
          "replaces": "metamorph_tpu/ops/decode_attention.py:191 "
@@ -1109,6 +1187,29 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
                    for r in opt_rows["chunk"]}},
     ]}
     return summary
+
+
+def check_no_spills(ptxas_log: str) -> None:
+    """Kernels A and D keep their accumulators in registers: each of their
+    entries in nvcc's `-Xptxas -v` output must spill nothing. (An empty log
+    means this process reused an earlier build and has nothing to read.)"""
+    spills, entry = {}, None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line and entry is not None:
+            spills[entry] = line.strip()
+    if not ptxas_log:
+        log("build: reused an earlier library; spills not read")
+        return
+    hot = {e: v for e, v in spills.items()
+           if "flash_fwd_kernel" in e or "flash_bwd_dkv_kernel" in e}
+    bad = {e: v for e, v in hot.items()
+           if "0 bytes spill stores, 0 bytes spill loads" not in v}
+    if len(hot) < 4 or bad:
+        raise AssertionError(f"kernels A/D spill or were not found in the "
+                             f"ptxas output: {bad or hot}")
+    log(f"build: kernels A and D, {len(hot)} entries, no spills")
 
 
 def free_memory(torch) -> None:
@@ -1141,8 +1242,10 @@ def main() -> int:
     LIBRARY.build(verbose=True)
     log(f"build: nvcc {LIBRARY.build_seconds:.1f}s")
     for line in LIBRARY.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling",
+                                   "arning")):
             log("  ptxas:", line.strip())
+    check_no_spills(LIBRARY.ptxas_log)
 
     kernel_rows = phase_kernels(torch, dev)
     bwd_rows = phase_bwd_kernels(torch, dev)

@@ -22,24 +22,31 @@
 // the tensor cores are the resource that matters.
 //
 // What the design does about it: every product runs on the tensor cores
-// with `mma.sync.m16n8k16` bf16 -> fp32 (the simple first step; wgmma, TMA
-// and pipelining are later work), and the softmax never leaves registers.
-//   * Kernel C: one CTA per (batch row, q head, 64-row q tile); four warps
-//     own 16 q rows each and keep Q and dO as A fragments in registers. K/V
-//     tiles of 64 keys are staged in padded shared memory (row stride Dh+8,
-//     conflict-free fragment reads); the key loop ends at min(length,
-//     causal end), as kernel A's does. dS leaves the score registers as the
-//     A operand of dS K directly (the m16n8 accumulator layout is the
-//     m16n8k16 A layout), rounded to bf16.
-//   * Kernel D: one CTA per (batch row, kv head, 64-key tile); warp w owns
-//     keys 16w..16w+15. K and V stay in shared memory; the CTA loops over
-//     the G = H/KV q heads of its group and, for each, over the q tiles from
-//     the first that can see the key tile (causal) to the end, staging Q,
-//     dO, lse and delta of each in shared memory. It computes the
-//     TRANSPOSED tiles S^T = K Q^T and dP^T = V dO^T, so P^T and dS^T come
-//     out of the accumulators already in the A layout that dV += P^T dO and
-//     dK += dS^T Q need — no transposed operand is ever loaded. dK and dV
-//     stay in fp32 registers across the whole group and are written once.
+// and the softmax never leaves registers.
+//   * Kernel C (the first, simple design; `mma.sync.m16n8k16` bf16 -> fp32,
+//     no pipelining): one CTA per (batch row, q head, 64-row q tile); four
+//     warps own 16 q rows each and keep Q and dO as A fragments in
+//     registers. K/V tiles of 64 keys are staged in padded shared memory
+//     (row stride Dh+8, conflict-free fragment reads); the key loop ends at
+//     min(length, causal end), as kernel A's does. dS leaves the score
+//     registers as the A operand of dS K directly (the m16n8 accumulator
+//     layout is the m16n8k16 A layout), rounded to bf16.
+//   * Kernel D (Hopper design, helpers in sm90.cuh): one CTA per (kv head,
+//     batch row, 128-key tile), key tile 0 (the heaviest when causal)
+//     launched first. Two consumer warpgroups own 64 keys each; one thread
+//     of a producer warpgroup issues the TMA loads, and `setmaxnreg` moves
+//     registers from the producer (24) to the consumers (240). K and V are
+//     loaded once; the producer then streams (Q, dO) tiles of 64 q rows,
+//     with their lse and delta rows, of every q head of the group — from
+//     the first q tile that can see the key tile (causal) to the end —
+//     through a 2-stage ring of shared-memory stages guarded by full/empty
+//     mbarriers, so loads overlap the math. Per tile, S^T = K Q^T and
+//     dP^T = V dO^T are wgmma m64n64k16 from shared memory (all K-major);
+//     P^T and dS^T come out of those accumulators already in the register
+//     A layout of dV += P^T dO and dK += dS^T Q, which are wgmma with dO
+//     and Q read as MN-major (transposed) B operands. Only tiles that cross
+//     the diagonal, the length or T are masked. dK and dV stay in fp32
+//     registers across the whole group and are written once.
 //
 // Semantics held to the Pallas kernels: key j is visible to query row i iff
 // j < length[b] and (not causal or j <= i). P = exp(S*scale - lse) with the
@@ -50,17 +57,16 @@
 // addressed through strides, so the model layout [B, T, H, Dh] needs no
 // copies. No atomics: two launches on the same inputs give equal bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using sm90::bf16;
+using sm90::pack_bf16;
 
-constexpr int BM = 64;        // q rows per tile
-constexpr int BN = 64;        // keys per tile
-constexpr int NWARPS = 4;     // 16 rows (kernel C) or 16 keys (kernel D) each
+constexpr int BM = 64;        // kernel C: q rows per CTA
+constexpr int BN = 64;        // kernel C: keys per tile
+constexpr int NWARPS = 4;     // kernel C: 16 q rows each
 constexpr float LOG2E = 1.44269504088896340736f;
 
 __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
@@ -72,12 +78,7 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two floats -> bf16x2, first value in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
+// two bf16 -> bf16x2, first value in the low half
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   __nv_bfloat162 v;
   v.x = lo;
@@ -249,183 +250,253 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // kernel D: dk, dv
 // ---------------------------------------------------------------------------
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return 4 * 64 * (D + 8) * 2 + 2 * BM * 4;
-}
+constexpr int DKV_BN = 128;      // keys per CTA: two consumer warpgroups
+constexpr int DKV_BM = 64;       // q rows per streamed tile
+constexpr int DKV_STAGES = 2;    // (Q, dO, lse, delta) ring depth
+constexpr int DKV_THREADS = 384; // 2 consumer warpgroups + 1 producer
+// lse and delta rows come by TMA from the contiguous [B*H*T] vectors. A box
+// has to start at a 16-byte aligned address, so each stage loads the
+// DKV_ROWS-element window that starts at the q tile's first row rounded down
+// to a multiple of 4; the tile's rows sit 0-3 elements into it.
+constexpr int DKV_ROWS = DKV_BM + 4;
+// a TMA destination has to be 128-byte aligned: stages 384 bytes apart
+constexpr int DKV_ROWS_PAD = DKV_BM + 32;
 
 template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v,
-                     const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dd, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, const int* __restrict__ lengths,
-                     int H, int KV, int T, int S,
-                     int64_t q_sb, int64_t q_sh, int64_t q_st,
-                     int64_t k_sb, int64_t k_sh, int64_t k_st,
-                     int64_t v_sb, int64_t v_sh, int64_t v_st,
-                     int64_t d_sb, int64_t d_sh, int64_t d_st,
-                     int64_t gk_sb, int64_t gk_sh, int64_t gk_st,
-                     int64_t gv_sb, int64_t gv_sh, int64_t gv_st,
-                     float scale, int causal) {
-  constexpr int KC = D / 16;
-  constexpr int NTO = D / 8;
-  constexpr int LDS = D + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + BN * LDS;
-  bf16* qs = vs + BN * LDS;
-  bf16* ds = qs + BM * LDS;     // the dO tile
-  float* lse_s = reinterpret_cast<float*>(ds + BM * LDS);
-  float* dd_s = lse_s + BM;
+struct DkvSmem {
+  static constexpr int KV = DKV_BN * D * 2;      // bytes: the K (or V) tile
+  static constexpr int QD = DKV_BM * D * 2;      // one Q (or dO) stage
+  static constexpr int ROWS = DKV_ROWS_PAD * 4;  // one lse (or delta) stage
+  static constexpr int BYTES =
+      2 * KV + DKV_STAGES * (2 * QD + 2 * ROWS) + 64 + 1024;
+};
 
-  const int j0 = blockIdx.x * BN;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap dmap,
+                     const __grid_constant__ CUtensorMap lmap,
+                     const __grid_constant__ CUtensorMap ddmap,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     const int* __restrict__ lengths, int H, int KV, int T,
+                     int S, int64_t gk_sb, int64_t gk_sh, int64_t gk_st,
+                     int64_t gv_sb, int64_t gv_sh, int64_t gv_st, float scale,
+                     int causal) {
+  using namespace sm90;
+  constexpr int NCH = D / CHUNK;
+  constexpr int KVB = DkvSmem<D>::KV;
+  constexpr int QDB = DkvSmem<D>::QD;
+  constexpr int NA = D / 2;        // dK (and dV) accumulator floats per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* vs = ks + KVB;
+  unsigned char* qs = vs + KVB;                 // DKV_STAGES Q tiles
+  unsigned char* dos = qs + DKV_STAGES * QDB;   // DKV_STAGES dO tiles
+  float* lse_s = reinterpret_cast<float*>(dos + DKV_STAGES * QDB);
+  float* dd_s = lse_s + DKV_STAGES * DKV_ROWS_PAD;
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(dd_s + DKV_STAGES * DKV_ROWS_PAD);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + DKV_STAGES;
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int j0 = blockIdx.z * DKV_BN;   // key tile 0, the heaviest, first
   const int G = H / KV;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-
   const int length = max(0, min(lengths[b], S));
-  const int key0 = j0 + warp * 16 + g;   // this thread's two keys
-  const int key1 = key0 + 8;
-  const float scale_log2 = scale * LOG2E;
+  // the first q tile that can see a key of this tile; a key tile past the
+  // length (or, causal, past every q row) gets zeros
+  const int i_begin = causal ? j0 : 0;
+  const int nq = i_begin < T ? (T - i_begin + DKV_BM - 1) / DKV_BM : 0;
+  const int n_tiles = j0 < length ? G * nq : 0;
 
-  float dka[NTO][4], dva[NTO][4];
-#pragma unroll
-  for (int nt = 0; nt < NTO; ++nt) {
-    dka[nt][0] = dka[nt][1] = dka[nt][2] = dka[nt][3] = 0.f;
-    dva[nt][0] = dva[nt][1] = dva[nt][2] = dva[nt][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);   // every consumer thread releases
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  if (j0 < length) {           // a key tile past the length gets zeros
-    stage_tile<D>(ks, k + b * k_sb + kvh * k_sh, k_st, j0, length);
-    stage_tile<D>(vs, v + b * v_sb + kvh * v_sh, v_st, j0, length);
-    const int i_begin = causal ? (j0 / BM) * BM : 0;
-    const bf16* ka = ks + (warp * 16 + g) * LDS + tig * 2;
-    const bf16* va = vs + (warp * 16 + g) * LDS + tig * 2;
-
-    for (int gi = 0; gi < G; ++gi) {
-      const int h = kvh * G + gi;
-      const bf16* qb = q + b * q_sb + h * q_sh;
-      const bf16* db = dout + b * d_sb + h * d_sh;
-      const float* lrow = lse + ((int64_t)b * H + h) * T;
-      const float* drow = dd + ((int64_t)b * H + h) * T;
-      for (int i0 = i_begin; i0 < T; i0 += BM) {
-        __syncthreads();        // the previous q tile is fully consumed
-        stage_tile<D>(qs, qb, q_st, i0, T);
-        stage_tile<D>(ds, db, d_st, i0, T);
-        for (int r = threadIdx.x; r < BM; r += NWARPS * 32) {
-          lse_s[r] = i0 + r < T ? lrow[i0 + r] * LOG2E : 0.f;
-          dd_s[r] = i0 + r < T ? drow[i0 + r] : 0.f;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: K/V once, then (Q, dO, lse, delta) of every q tile of every
+    // q head of the group through the ring
+    reg_dealloc<24>();
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * KVB);
+      for (int c = 0; c < NCH; ++c) {
+        tma_load_4d(ks + c * DKV_BN * 128, &kmap, kv_full, c * CHUNK, j0, kvh,
+                    b);
+        tma_load_4d(vs + c * DKV_BN * 128, &vmap, kv_full, c * CHUNK, j0, kvh,
+                    b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % DKV_STAGES;
+        const int gi = t / nq;
+        const int h = kvh * G + gi;
+        const int i0 = i_begin + (t - gi * nq) * DKV_BM;
+        mbar_wait(&empty[s], ((t / DKV_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * QDB + 2 * DKV_ROWS * 4);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load_4d(qs + s * QDB + c * DKV_BM * 128, &qmap, &full[s],
+                      c * CHUNK, i0, h, b);
+          tma_load_4d(dos + s * QDB + c * DKV_BM * 128, &dmap, &full[s],
+                      c * CHUNK, i0, h, b);
         }
-        __syncthreads();
+        // rows past T read the next head's values (or zeros past the end);
+        // the consumers mask them
+        const int row = ((b * H + h) * T + i0) & ~3;
+        tma_load_1d(lse_s + s * DKV_ROWS_PAD, &lmap, &full[s], row);
+        tma_load_1d(dd_s + s * DKV_ROWS_PAD, &ddmap, &full[s], row);
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int kw = j0 + wg * 64;               // this warpgroup's first key
+    const int key0 = kw + warp * 16 + g;       // this thread's two keys
+    const int key1 = key0 + 8;
+    const float scale_log2 = scale * LOG2E;
+    const uint32_t ka = smem_u32(ks) + wg * 64 * 128;
+    const uint32_t va = smem_u32(vs) + wg * 64 * 128;
 
-#pragma unroll 1
-        for (int c16 = 0; c16 < BM / 16; ++c16) {   // 16 q rows at a time
-          // S^T = K Q^T and dP^T = V dO^T for 16 keys x 16 q rows
-          float st[2][4], dpt[2][4];
+    float dka[NA], dva[NA];
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
-            dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
-          }
+    for (int i = 0; i < NA; ++i) dka[i] = dva[i] = 0.f;
+
+    if (n_tiles > 0) mbar_wait(kv_full, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % DKV_STAGES;
+      const int gi = t / nq;
+      const int i0 = i_begin + (t - gi * nq) * DKV_BM;
+      const int skew = ((b * H + kvh * G + gi) * T) & 3;
+      mbar_wait(&full[s], (t / DKV_STAGES) & 1);
+      const uint32_t qa = smem_u32(qs + s * QDB);
+      const uint32_t da = smem_u32(dos + s * QDB);
+      const float* lrow = lse_s + s * DKV_ROWS_PAD + skew;
+      const float* drow = dd_s + s * DKV_ROWS_PAD + skew;
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 q rows, all K-major
+      float st[32], dpt[32];
 #pragma unroll
-          for (int kc = 0; kc < KC; ++kc) {
-            uint32_t af[4], vf[4];
-            af[0] = ld32(ka + kc * 16);
-            af[1] = ld32(ka + 8 * LDS + kc * 16);
-            af[2] = ld32(ka + kc * 16 + 8);
-            af[3] = ld32(ka + 8 * LDS + kc * 16 + 8);
-            vf[0] = ld32(va + kc * 16);
-            vf[1] = ld32(va + 8 * LDS + kc * 16);
-            vf[2] = ld32(va + kc * 16 + 8);
-            vf[3] = ld32(va + 8 * LDS + kc * 16 + 8);
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      wgmma_fence();
 #pragma unroll
-            for (int j = 0; j < 2; ++j) {
-              const int off = (c16 * 16 + j * 8 + g) * LDS + tig * 2 + kc * 16;
-              mma_16816(st[j], af, ld32(qs + off), ld32(qs + off + 8));
-              mma_16816(dpt[j], vf, ld32(ds + off), ld32(ds + off + 8));
-            }
-          }
-          // P^T and dS^T; rows are keys, columns q rows
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const uint32_t ko = (kc / 4) * DKV_BN * 128 + (kc % 4) * 32;
+        const uint32_t qo = (kc / 4) * DKV_BM * 128 + (kc % 4) * 32;
+        mma_ss<64, 0>(st, desc_kmajor(ka + ko), desc_kmajor(qa + qo), 1);
+        mma_ss<64, 0>(dpt, desc_kmajor(va + ko), desc_kmajor(da + qo), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands<32>(st);
+      fence_operands<32>(dpt);
+
+      // P^T and dS^T; rows are keys, columns q rows. The mask selects (a
+      // masked column may hold another head's lse and delta).
+      const bool need_mask = kw + 64 > length || i0 + DKV_BM > T ||
+                             (causal && kw + 63 > i0);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int key = (e < 2) ? key0 : key1;
-              const int rl = c16 * 16 + j * 8 + tig * 2 + (e & 1);
-              const int qi = i0 + rl;
-              const bool ok = key < length && qi < T && (!causal || key <= qi);
-              const float p = ok ? exp2f(st[j][e] * scale_log2 - lse_s[rl]) : 0.f;
-              st[j][e] = p;
-              dpt[j][e] = p * (dpt[j][e] - dd_s[rl]) * scale;
-            }
-          }
-          uint32_t pa[4], sa[4];
-          pa[0] = pack_bf16(st[0][0], st[0][1]);
-          pa[1] = pack_bf16(st[0][2], st[0][3]);
-          pa[2] = pack_bf16(st[1][0], st[1][1]);
-          pa[3] = pack_bf16(st[1][2], st[1][3]);
-          sa[0] = pack_bf16(dpt[0][0], dpt[0][1]);
-          sa[1] = pack_bf16(dpt[0][2], dpt[0][3]);
-          sa[2] = pack_bf16(dpt[1][0], dpt[1][1]);
-          sa[3] = pack_bf16(dpt[1][2], dpt[1][3]);
-          // dV += P^T dO and dK += dS^T Q: depth = these 16 q rows
-          const bf16* dop = ds + (c16 * 16 + tig * 2) * LDS + g;
-          const bf16* qp = qs + (c16 * 16 + tig * 2) * LDS + g;
-#pragma unroll
-          for (int nt = 0; nt < NTO; ++nt) {
-            uint32_t b0, b1;
-            b_frag_kmajor(dop + nt * 8, LDS, b0, b1);
-            mma_16816(dva[nt], pa, b0, b1);
-            b_frag_kmajor(qp + nt * 8, LDS, b0, b1);
-            mma_16816(dka[nt], sa, b0, b1);
-          }
+      for (int i = 0; i < 32; ++i) {
+        const int col = (i / 4) * 8 + tig * 2 + (i & 1);
+        float p = exp2f(fmaf(st[i], scale_log2, -lrow[col] * LOG2E));
+        float ds = p * (dpt[i] - drow[col]) * scale;
+        if (need_mask) {
+          const int key = (i & 2) ? key1 : key0;
+          const int qi = i0 + col;
+          if (!(key < length && qi < T && (!causal || key <= qi)))
+            p = ds = 0.f;
         }
+        st[i] = p;
+        dpt[i] = ds;
+      }
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kc][r] = pack_bf16(st[8 * kc + 2 * r], st[8 * kc + 2 * r + 1]);
+          sa[kc][r] = pack_bf16(dpt[8 * kc + 2 * r], dpt[8 * kc + 2 * r + 1]);
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: depth = the 64 q rows, dO and Q
+      // MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        mma_rs<D, 1>(dva, pa[kc],
+                     desc_mnmajor(da + kc * 16 * 128, DKV_BM * 128), 1);
+        mma_rs<D, 1>(dka, sa[kc],
+                     desc_mnmajor(qa + kc * 16 * 128, DKV_BM * 128), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands<NA>(dka);
+      fence_operands<NA>(dva);
+      mbar_arrive(&empty[s]);
+    }
+
+    bf16* kout = dk + b * gk_sb + kvh * gk_sh;
+    bf16* vout = dv + b * gv_sb + kvh * gv_sh;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+      const int c = nb * 8 + tig * 2;
+      if (key0 < S) {
+        *reinterpret_cast<uint32_t*>(kout + key0 * gk_st + c) =
+            pack_bf16(dka[4 * nb], dka[4 * nb + 1]);
+        *reinterpret_cast<uint32_t*>(vout + key0 * gv_st + c) =
+            pack_bf16(dva[4 * nb], dva[4 * nb + 1]);
+      }
+      if (key1 < S) {
+        *reinterpret_cast<uint32_t*>(kout + key1 * gk_st + c) =
+            pack_bf16(dka[4 * nb + 2], dka[4 * nb + 3]);
+        *reinterpret_cast<uint32_t*>(vout + key1 * gv_st + c) =
+            pack_bf16(dva[4 * nb + 2], dva[4 * nb + 3]);
       }
     }
   }
-
-  bf16* kout = dk + b * gk_sb + kvh * gk_sh;
-  bf16* vout = dv + b * gv_sb + kvh * gv_sh;
-#pragma unroll
-  for (int nt = 0; nt < NTO; ++nt) {
-    const int c = nt * 8 + tig * 2;
-    if (key0 < S) {
-      *reinterpret_cast<uint32_t*>(kout + key0 * gk_st + c) =
-          pack_bf16(dka[nt][0], dka[nt][1]);
-      *reinterpret_cast<uint32_t*>(vout + key0 * gv_st + c) =
-          pack_bf16(dva[nt][0], dva[nt][1]);
-    }
-    if (key1 < S) {
-      *reinterpret_cast<uint32_t*>(kout + key1 * gk_st + c) =
-          pack_bf16(dka[nt][2], dka[nt][3]);
-      *reinterpret_cast<uint32_t*>(vout + key1 * gv_st + c) =
-          pack_bf16(dva[nt][2], dva[nt][3]);
-    }
-  }
 }
 
 template <int D>
-int launch_dkv(dim3 grid, cudaStream_t st, const bf16* q, const bf16* k,
-               const bf16* v, const bf16* d, const float* lse,
-               const float* dd, bf16* dk, bf16* dv, const int* lengths,
-               int H, int KV, int T, int S, const int64_t* sd, float scale,
-               int causal) {
-  constexpr int bytes = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_kernel<D><<<grid, NWARPS * 32, bytes, st>>>(
-      q, k, v, d, lse, dd, dk, dv, lengths, H, KV, T, S, sd[0], sd[1], sd[2],
-      sd[3], sd[4], sd[5], sd[6], sd[7], sd[8], sd[9], sd[10], sd[11], sd[12],
-      sd[13], sd[14], sd[15], sd[16], sd[17], scale, causal);
+int launch_dkv(const void* q, const void* k, const void* v, const void* d,
+               const float* lse, const float* dd, bf16* dk, bf16* dv,
+               const int* lengths, int B, int H, int KV, int T, int S,
+               const int64_t* sd, float scale, int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm, dm, lm, ddm;
+  int err = sm90::make_map(&qm, q, D, T, H, B, sd[2], sd[1], sd[0], DKV_BM);
+  if (!err)
+    err = sm90::make_map(&km, k, D, S, KV, B, sd[5], sd[4], sd[3], DKV_BN);
+  if (!err)
+    err = sm90::make_map(&vm, v, D, S, KV, B, sd[8], sd[7], sd[6], DKV_BN);
+  if (!err)
+    err = sm90::make_map(&dm, d, D, T, H, B, sd[11], sd[10], sd[9], DKV_BM);
+  if (!err) err = sm90::make_map_f32(&lm, lse, (int64_t)B * H * T, DKV_ROWS);
+  if (!err) err = sm90::make_map_f32(&ddm, dd, (int64_t)B * H * T, DKV_ROWS);
+  if (err) return err;
+  constexpr int bytes = DkvSmem<D>::BYTES;
+  static bool sized = false;   // once per instantiation and process
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  const dim3 grid(KV, B, (S + DKV_BN - 1) / DKV_BN);
+  flash_bwd_dkv_kernel<D><<<grid, DKV_THREADS, bytes, st>>>(
+      qm, km, vm, dm, lm, ddm, dk, dv, lengths, H, KV, T, S, sd[12], sd[13],
+      sd[14], sd[15], sd[16], sd[17], scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -482,22 +553,19 @@ extern "C" int mm_flash_bwd_dkv_bf16(
     float scale, int causal, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || T <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + BN - 1) / BN, KV, B);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int64_t sd[18] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
                           v_sb, v_sh, v_st, d_sb, d_sh, d_st,
                           gk_sb, gk_sh, gk_st, gv_sb, gv_sh, gv_st};
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dp = static_cast<const bf16*>(dout);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
+  if (B > 65535 || KV > 65535 || (S + DKV_BN - 1) / DKV_BN > 65535)
+    return (int)cudaErrorInvalidValue;
   if (D == 128)
-    return launch_dkv<128>(grid, st, qp, kp, vp, dp, lse, dd, dkp, dvp,
-                           lengths, H, KV, T, S, sd, scale, causal);
+    return launch_dkv<128>(q, k, v, dout, lse, dd, dkp, dvp, lengths, B, H,
+                           KV, T, S, sd, scale, causal, st);
   if (D == 64)
-    return launch_dkv<64>(grid, st, qp, kp, vp, dp, lse, dd, dkp, dvp,
-                          lengths, H, KV, T, S, sd, scale, causal);
+    return launch_dkv<64>(q, k, v, dout, lse, dd, dkp, dvp, lengths, B, H,
+                          KV, T, S, sd, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

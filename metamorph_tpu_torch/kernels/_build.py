@@ -1,15 +1,18 @@
 """Build and bind the hand-written CUDA kernels.
 
 `metamorph_tpu_torch/csrc/*.cu` compile with nvcc, one process per source,
-all started together, and link into one shared library with a plain C
-interface, which loads through ctypes. The library lands in
-`metamorph_tpu_torch/build/` (listed in .gitignore) under a name keyed by a
-hash of the sources and flags, so a changed source rebuilds and an
-unchanged one is reused. Nothing here runs at import: the first kernel
+all started together, with `-I csrc` for the shared headers (`*.cuh`, such
+as `sm90.cuh`), and link into one shared library with a plain C interface,
+which loads through ctypes. The library lands in `metamorph_tpu_torch/build/`
+(listed in .gitignore) under a name keyed by a hash of the sources, the
+headers and the flags, so a changed source or header rebuilds and an
+unchanged tree is reused. Nothing here runs at import: the first kernel
 launch builds and loads the library.
 
 The sources include only CUDA's own headers, never PyTorch's, which keeps
-the build at seconds rather than minutes.
+the build at seconds rather than minutes. The TMA tensor maps need the
+driver's `cuTensorMapEncodeTiled`, which `sm90.cuh` fetches through
+`cudaGetDriverEntryPoint`, so the library links no more than the runtime.
 """
 
 from __future__ import annotations
@@ -46,9 +49,13 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(sources() + headers()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmetamorph_kernels_{h.hexdigest()[:16]}.so"
@@ -77,7 +84,8 @@ class _Library:
         nvcc = _nvcc()
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC),
+             *(["-Xptxas", "-v"] if verbose else []),
              "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(sources(), objs)]

@@ -1,0 +1,89 @@
+"""`metamorph_tpu_torch/kernels/_build.py` on the CPU (no nvcc needed): the
+library's name is keyed by every CUDA source and every shared header, and
+only the `.cu` sources are compiled, each with the header directory on its
+include path. nvcc is replaced by a stand-in that writes its outputs."""
+
+import subprocess
+from pathlib import Path
+
+import pytest
+
+from metamorph_tpu_torch.kernels import _build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    d = tmp_path / "csrc"
+    d.mkdir()
+    (d / "a.cu").write_text('#include "h.cuh"\n// a\n')
+    (d / "b.cu").write_text("// b\n")
+    (d / "h.cuh").write_text("// h, first version\n")
+    monkeypatch.setattr(_build, "CSRC", d)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    return d
+
+
+def test_the_shipped_tree_has_a_shared_header():
+    assert [p.name for p in _build.headers()] == ["sm90.cuh"]
+    assert all(p.suffix == ".cu" for p in _build.sources())
+
+
+@pytest.mark.parametrize("change", ["edit_header", "edit_source",
+                                    "add_source", "add_header"])
+def test_library_name_changes_with_the_tree(csrc, change):
+    before = _build.library_path()
+    assert _build.library_path() == before
+    if change == "edit_header":
+        (csrc / "h.cuh").write_text("// h, second version\n")
+    elif change == "edit_source":
+        (csrc / "b.cu").write_text("// b, second version\n")
+    elif change == "add_source":
+        (csrc / "c.cu").write_text("// c\n")
+    else:
+        (csrc / "g.cuh").write_text("// g\n")
+    assert _build.library_path() != before
+
+
+def test_library_name_ignores_other_files(csrc):
+    before = _build.library_path()
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert _build.library_path() == before
+
+
+def test_only_cu_sources_compile_with_the_header_dir(csrc, monkeypatch):
+    calls = []
+
+    def touch_output(cmd):
+        calls.append(list(cmd))
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+
+    class Proc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            touch_output(cmd)
+
+        def communicate(self):
+            return "", None
+
+    def run(cmd, **kwargs):
+        touch_output(cmd)
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", Proc)
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    lib = _build._Library()
+    out = lib.build()
+    compiles = [c for c in calls if "-c" in c]
+    links = [c for c in calls if "-shared" in c]
+    assert sorted(Path(c[-1]).name for c in compiles) == ["a.cu", "b.cu"]
+    for c in compiles:
+        assert c[c.index("-I") + 1] == str(csrc)
+        assert "arch=compute_90a,code=sm_90a" in c
+    assert len(links) == 1
+    assert not any(a.endswith((".cu", ".cuh")) for a in links[0])
+    assert out == _build.library_path() and out.exists()
+    assert not list(out.parent.glob("*.o"))      # objects removed
+    calls.clear()
+    assert lib.build() == out and calls == []    # an unchanged tree is reused

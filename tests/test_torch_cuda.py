@@ -15,9 +15,12 @@ kernels are held to 3e-2 of max|ref| for each of dq, dk, dv: P and dS
 enter their tensor-core products rounded to bf16 (relative 2**-9 each),
 and the outputs are bf16."""
 
+import ctypes
+
 import pytest
 import torch
 
+from metamorph_tpu_torch.kernels._build import Kernel
 from metamorph_tpu_torch.ops import decode_attention as da
 from metamorph_tpu_torch.ops import flash_attention as fa
 from metamorph_tpu_torch.ops.quant import quantize_kv
@@ -320,3 +323,107 @@ def test_bwd_wrapper_refuses_what_the_kernels_do_not_take(dev):
         fa.flash_attention_bwd(q, k, k, o, lse[:, :, :8], o, None, n, True,
                                0.1)
     assert fa.FLASH_BWD_DQ.launches == dq_n
+
+
+def _check_fwd(q, k, v, lengths, causal):
+    o, lse = fa.flash_attention_with_lse(q, k, v, lengths, causal=causal)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        lengths, causal)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o.float() - ro).abs().max().item() <= O_TOL
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
+    return o, lse
+
+
+def _check_bwd(q, k, v, o, lse, do, lengths, causal):
+    scale = q.shape[-1] ** -0.5
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, None, lengths, causal,
+                                 scale)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, None, lengths, causal,
+                                   scale)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), None,
+                                       lengths, causal, scale)
+    for name, x, y, r in zip(("dq", "dk", "dv"), got, again, ref):
+        assert torch.isfinite(x).all(), name
+        assert torch.equal(x, y), f"{name} not bitwise repeatable"
+        assert _rel_err(x, r) <= BWD_TOL, (name, _rel_err(x, r))
+    return got
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("B,T,S,H,KV,lens,causal", [
+    (1, 1, 17, 4, 1, [17], False),               # one q row
+    (2, 17, 17, 4, 2, [17, 9], True),            # shorter than any tile
+    (1, 129, 129, 4, 1, [129], True),            # one row past a 128-row tile
+    (1, 129, 129, 4, 1, [129], False),
+    (2, 100, 300, 8, 2, [257, 300], False),      # S = 300, length 257
+    (2, 150, 150, 16, 2, [150, 100], True),      # GQA G = 8
+    (1, 4096, 4096, 32, 8, [4096], True),        # the 8B train step's shape
+])
+def test_flash_kernels_at_tile_edges(dev, B, T, S, H, KV, lens, causal, Dh):
+    """Kernels A, C and D where a TMA box runs past T or S (the map
+    zero-fills it), past the length (masked), at GQA G = 8, and at the
+    train step's causal T = 4096."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (_randn(gen, dev, B, H, T, Dh), _randn(gen, dev, B, KV, S, Dh),
+               _randn(gen, dev, B, KV, S, Dh))
+    do = _randn(gen, dev, B, H, T, Dh)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    o, lse = _check_fwd(q, k, v, lengths, causal)
+    _check_bwd(q, k, v, o, lse, do, lengths, causal)
+
+
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_read_strided_views(dev, Dh, causal):
+    """q, k and v as views into larger buffers (k and v sliced from one
+    [B, S, 2, KV, Dh] tensor, q from a buffer with spare heads), T and S
+    not multiples of a tile: a map that ran past T or past a head would
+    read a neighbour's values. Results equal those of contiguous copies
+    bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, T, H, KV = 2, 200, 8, 2
+    qbuf = _randn(gen, dev, B, T, H + 2, Dh)
+    kv = _randn(gen, dev, B, T, 2, KV, Dh)
+    q = qbuf[:, :, 1:H + 1].transpose(1, 2)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    do = _randn(gen, dev, B, H, T, Dh)
+    lengths = torch.tensor([T, 131], dtype=torch.int32, device=dev)
+    o, lse = _check_fwd(q, k, v, lengths, causal)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    oc, lsec = fa.flash_attention_with_lse(qc, kc, vc, lengths, causal=causal)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    got = _check_bwd(q, k, v, o, lse, do, lengths, causal)
+    ref = fa.flash_attention_bwd(qc, kc, vc, oc, lsec, do, None, lengths,
+                                 causal, Dh ** -0.5)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+DESC_CHECK = Kernel("mm_sm90_desc_check",
+                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p])
+
+
+@pytest.mark.parametrize("N", [64, 128])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3],
+                         ids=["ss_kmajor", "ss_mnmajor", "rs_kmajor",
+                              "rs_mnmajor"])
+def test_sm90_descriptors_match_matmul(dev, N, mode):
+    """`csrc/sm90_check.cu`: TMA boxes with the 128-byte swizzle, the wgmma
+    descriptors (K-major and MN-major B, 64 or 128 output columns, two
+    swizzle chunks of depth) and the accumulator layout that kernels A and
+    D use, through one 64 x N x 128 product, against torch.matmul in fp32
+    on the same bf16 values (only the order of fp32 sums differs)."""
+    gen = torch.Generator(device=dev).manual_seed(10 + mode)
+    a = _randn(gen, dev, 64, 128)
+    b = _randn(gen, dev, 128, N) if mode & 1 else _randn(gen, dev, N, 128)
+    c = torch.full((64, N), float("nan"), device=dev)
+    DESC_CHECK.launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), N, mode,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    ref = a.float() @ (b.float() if mode & 1 else b.float().t())
+    assert (c - ref).abs().max().item() <= 1e-3
