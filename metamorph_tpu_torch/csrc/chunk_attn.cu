@@ -9,38 +9,29 @@
 //   chunked-fill step) and `_chunk_kernel_batched` (driven by
 //   `chunk_attention_batched`: every row's chunk against its own row at its
 //   own offset, the speculative-verification step) of
-//   metamorph_tpu/ops/decode_attention.py, bf16 and int8 branches. One
-//   kernel covers both: K6 is NB = 1 with rows = [slot], K7 is NB = B with
-//   rows = 0..B-1. There is no length and no start: entries past
-//   off + C - 1 may be stale (rejected drafts, an earlier fill), and the
-//   mask alone keeps them out.
+//   metamorph_tpu/ops/decode_attention.py, bf16 and int8 branches. K6 is
+//   NB = 1 with rows = [slot], K7 is NB = B with rows = 0..B-1. There is no
+//   length and no start: entries past off + C - 1 may be stale (rejected
+//   drafts, an earlier fill), and the mask alone keeps them out.
 //
-// What bounds it on the H100: the fill form (C = 256, G = 4 query heads per
-// kv head) does 4*Dh FLOPs per visible (query, key) pair on every key row it
-// reads, G*C = 1024 query rows per key: well above the card's ~295
-// FLOP/byte balance, so the tensor cores bound it. The verify form (C = 4,
-// G*C = 16 query rows per key) is ~16 FLOP per byte: HBM bytes bound it,
-// like decode attention.
-//
-// What the design does about it: the G query heads of a kv head and the C
-// chunk tokens become the G*C rows of one attention problem (row i is chunk
-// token i / G, head i % G), so every K/V tile in shared memory serves all
-// of them and K/V are never repeated per head. Each CTA owns one (chunk,
-// kv head, tile of query rows) and loops over 64-key tiles up to the last
-// key its rows can see, off + c_max, so stale cache beyond costs nothing.
-// QK^T and PV run on the tensor cores (`mma.sync.m16n8k16`, bf16 -> fp32),
-// kernel A's tile loop. Two shapes of CTA, four warps each:
-//   - WQ = 4: 64 query rows, each warp 16 rows over the whole key tile (the
-//     fill form);
-//   - WQ = 1: 16 query rows (the verify form's G*C = 16), the four warps
-//     split each key tile into four 16-key slices, each with its own online
-//     softmax state; the states merge through shared memory at the end.
-//     `kernels/bench_chunk_tiles.py` times it against WQ = 4 at the verify
-//     shape (PERF.md has the result).
-// int8: K/V convert to bf16 on the way into shared memory (exact for
-// |v| <= 127); k_scale multiplies the fp32 score, v_scale multiplies P
-// before its bf16 rounding, and the softmax sum takes the unscaled P.
-// wgmma, TMA and pipelined loads are later work.
+// Two kernels, chosen by the problem's packed query rows G*C (G = H / KV
+// query heads per kv head; row i is chunk token i / G, head kvh*G + i % G,
+// so every K/V tile serves all G heads and K/V are never repeated):
+//   - G*C > 16, the fill form (C = 256, G*C = 1024 rows per key): the
+//     tensor cores bound it. `chunk_fill.cu`: wgmma, TMA, a 2-stage ring
+//     under mbarriers, a producer warp, key splits merged in the launch;
+//   - G*C <= 16, the verify form (C = spec_k = 4, G = 4: 16 rows per key,
+//     ~16 FLOP per byte): HBM bytes bound it. This file's kernel: one
+//     four-warp CTA per (chunk, kv head) runs `mma.sync.m16n8k16` on the 16
+//     rows; the warps split each 64-key tile into four 16-key slices, each
+//     with its own online softmax state, merged through shared memory at
+//     the end. Tiles are staged through registers between __syncthreads;
+//     the CTA loops only up to off + c_max, so stale cache beyond costs
+//     nothing.
+// int8 (this kernel): K/V convert to bf16 on the way into shared memory
+// (exact for |v| <= 127); k_scale multiplies the fp32 score, v_scale
+// multiplies P before its bf16 rounding, and the softmax sum takes the
+// unscaled P.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,7 +91,7 @@ __device__ __forceinline__ void stage16(bf16* dst, const T* src, bool ok) {
   }
 }
 
-template <int D, int WQ, typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(NWARPS * 32)
 chunk_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
                   const T* __restrict__ vc, const float* __restrict__ ks,
@@ -110,6 +101,7 @@ chunk_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
                   int64_t c_sb, int64_t c_sh, int64_t sc_layer_off,
                   int64_t sc_sb, int64_t sc_sh, float scale_log2) {
   constexpr bool Q8 = sizeof(T) == 1;
+  constexpr int WQ = 1;            // 16-row query groups per CTA
   constexpr int WK = NWARPS / WQ;  // key slices per tile
   constexpr int KW = BN / WK;      // keys per warp per tile
   constexpr int BM = 16 * WQ;      // query rows per CTA
@@ -274,7 +266,7 @@ chunk_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
   }
 
   // merge: each warp parks its rows' (m, l, unnormalised O) in shared
-  // memory; with WQ = 4 every row has one slice and this only normalises
+  // memory
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -321,69 +313,82 @@ chunk_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
 }
 
 template <int D, typename T>
-int launch_d(bool narrow, int NB, int C, int H, int KV, cudaStream_t st,
-             const bf16* q, const T* kc, const T* vc, const float* ks,
-             const float* vs, bf16* o, const int* rows, const int* offs,
-             int S, int64_t layer_off, int64_t c_sb, int64_t c_sh,
-             int64_t sc_layer_off, int64_t sc_sb, int64_t sc_sh,
-             float scale_log2) {
-  const int GC = (H / KV) * C;
-  const dim3 block(NWARPS * 32);
-  if (narrow) {
-    const dim3 grid((GC + 15) / 16, KV, NB);
-    chunk_attn_kernel<D, 1, T><<<grid, block, 0, st>>>(
-        q, kc, vc, ks, vs, o, rows, offs, C, H, KV, S, layer_off, c_sb, c_sh,
-        sc_layer_off, sc_sb, sc_sh, scale_log2);
-  } else {
-    const dim3 grid((GC + 63) / 64, KV, NB);
-    chunk_attn_kernel<D, 4, T><<<grid, block, 0, st>>>(
-        q, kc, vc, ks, vs, o, rows, offs, C, H, KV, S, layer_off, c_sb, c_sh,
-        sc_layer_off, sc_sb, sc_sh, scale_log2);
-  }
+int launch_verify(int NB, int C, int H, int KV, cudaStream_t st,
+                  const bf16* q, const T* kc, const T* vc, const float* ks,
+                  const float* vs, bf16* o, const int* rows, const int* offs,
+                  int S, int64_t layer_off, int64_t c_sb, int64_t c_sh,
+                  int64_t sc_layer_off, int64_t sc_sb, int64_t sc_sh,
+                  float scale_log2) {
+  const dim3 grid(((H / KV) * C + 15) / 16, KV, NB);
+  chunk_attn_kernel<D, T><<<grid, NWARPS * 32, 0, st>>>(
+      q, kc, vc, ks, vs, o, rows, offs, C, H, KV, S, layer_off, c_sb, c_sh,
+      sc_layer_off, sc_sb, sc_sh, scale_log2);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const float* ks,
+int verify(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, void* o, const int* rows, const int* offs,
            int NB, int C, int H, int KV, int S, int D, int64_t layer_off,
            int64_t c_sb, int64_t c_sh, int64_t sc_layer_off, int64_t sc_sb,
-           int64_t sc_sh, float scale, void* stream) {
-  if (NB <= 0 || C <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0)
-    return (int)cudaErrorInvalidValue;
-  // 16 query rows per CTA when the problem has no more (the verify form)
-  const bool narrow = (H / KV) * C <= 16;
-  const float scale_log2 = scale * 1.44269504088896340736f;
+           int64_t sc_sh, float scale_log2, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bf16* qp = static_cast<const bf16*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   bf16* op = static_cast<bf16*>(o);
   if (D == 128)
-    return launch_d<128, T>(narrow, NB, C, H, KV, st, qp, kp, vp, ks, vs, op,
-                            rows, offs, S, layer_off, c_sb, c_sh,
-                            sc_layer_off, sc_sb, sc_sh, scale_log2);
+    return launch_verify<128, T>(NB, C, H, KV, st, qp, kp, vp, ks, vs, op,
+                                 rows, offs, S, layer_off, c_sb, c_sh,
+                                 sc_layer_off, sc_sb, sc_sh, scale_log2);
   if (D == 64)
-    return launch_d<64, T>(narrow, NB, C, H, KV, st, qp, kp, vp, ks, vs, op,
-                           rows, offs, S, layer_off, c_sb, c_sh,
-                           sc_layer_off, sc_sb, sc_sh, scale_log2);
+    return launch_verify<64, T>(NB, C, H, KV, st, qp, kp, vp, ks, vs, op,
+                                rows, offs, S, layer_off, c_sb, c_sh,
+                                sc_layer_off, sc_sb, sc_sh, scale_log2);
   return (int)cudaErrorInvalidValue;
 }
 
+bool bad_args(int NB, int C, int H, int KV, int S) {
+  return NB <= 0 || C <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || S <= 0;
+}
+
+constexpr float LOG2E = 1.44269504088896340736f;
+
 }  // namespace
+
+// defined in chunk_fill.cu: the fill form (more than 16 packed rows)
+int mm_chunk_fill_bf16(const void* q, const void* k, const void* v, void* o,
+                       const int* rows, const int* offs, int NB, int C, int H,
+                       int KV, int S, int D, int Bc, int64_t layer_off,
+                       int64_t c_sb, int64_t c_sh, float scale_log2,
+                       int n_split, float* ws, int* counters, void* stream);
+int mm_chunk_fill_int8(const void* q, const void* k, const void* v,
+                       const float* k_scale, const float* v_scale, void* o,
+                       const int* rows, const int* offs, int NB, int C, int H,
+                       int KV, int S, int D, int Bc, int64_t layer_off,
+                       int64_t c_sb, int64_t c_sh, int64_t sc_layer_off,
+                       int64_t sc_sb, int64_t sc_sh, float scale_log2,
+                       int n_split, float* ws, int* counters, void* stream);
 
 // q and o [NB, C, H, D] contiguous; k/v the stacked cache with rows of D
 // contiguous elements, `layer_off` the element offset of the layer's
-// [B, KV, S, D] block and c_sb / c_sh its row / kv-head strides; rows and
-// offs [NB] int32 on the device. Returns a cudaError_t as int (0 =
-// launched).
+// [Bc, KV, S, D] block and c_sb / c_sh its row / kv-head strides; rows and
+// offs [NB] int32 on the device. The fill form splits each CTA's keys into
+// n_split parts merged through ws / counters (see chunk_fill.cu; the
+// verify form uses neither). Returns a cudaError_t as int (0 = launched).
 extern "C" int mm_chunk_attn_bf16(
     const void* q, const void* k, const void* v, void* o, const int* rows,
-    const int* offs, int NB, int C, int H, int KV, int S, int D,
-    int64_t layer_off, int64_t c_sb, int64_t c_sh, float scale,
-    void* stream) {
-  return launch<bf16>(q, k, v, nullptr, nullptr, o, rows, offs, NB, C, H, KV,
-                      S, D, layer_off, c_sb, c_sh, 0, 0, 0, scale, stream);
+    const int* offs, int NB, int C, int H, int KV, int S, int D, int Bc,
+    int64_t layer_off, int64_t c_sb, int64_t c_sh, float scale, int n_split,
+    float* ws, int* counters, void* stream) {
+  if (bad_args(NB, C, H, KV, S)) return (int)cudaErrorInvalidValue;
+  if ((H / KV) * C > 16)
+    return mm_chunk_fill_bf16(q, k, v, o, rows, offs, NB, C, H, KV, S, D, Bc,
+                              layer_off, c_sb, c_sh, scale * LOG2E, n_split,
+                              ws, counters, stream);
+  return verify<bf16>(q, k, v, nullptr, nullptr, o, rows, offs, NB, C, H, KV,
+                      S, D, layer_off, c_sb, c_sh, 0, 0, 0, scale * LOG2E,
+                      stream);
 }
 
 // The int8 cache: k/v int8 as above; k_scale/v_scale fp32 planes with one
@@ -392,10 +397,17 @@ extern "C" int mm_chunk_attn_bf16(
 extern "C" int mm_chunk_attn_int8(
     const void* q, const void* k, const void* v, const float* k_scale,
     const float* v_scale, void* o, const int* rows, const int* offs, int NB,
-    int C, int H, int KV, int S, int D, int64_t layer_off, int64_t c_sb,
-    int64_t c_sh, int64_t sc_layer_off, int64_t sc_sb, int64_t sc_sh,
-    float scale, void* stream) {
-  return launch<int8_t>(q, k, v, k_scale, v_scale, o, rows, offs, NB, C, H,
+    int C, int H, int KV, int S, int D, int Bc, int64_t layer_off,
+    int64_t c_sb, int64_t c_sh, int64_t sc_layer_off, int64_t sc_sb,
+    int64_t sc_sh, float scale, int n_split, float* ws, int* counters,
+    void* stream) {
+  if (bad_args(NB, C, H, KV, S)) return (int)cudaErrorInvalidValue;
+  if ((H / KV) * C > 16)
+    return mm_chunk_fill_int8(q, k, v, k_scale, v_scale, o, rows, offs, NB, C,
+                              H, KV, S, D, Bc, layer_off, c_sb, c_sh,
+                              sc_layer_off, sc_sb, sc_sh, scale * LOG2E,
+                              n_split, ws, counters, stream);
+  return verify<int8_t>(q, k, v, k_scale, v_scale, o, rows, offs, NB, C, H,
                         KV, S, D, layer_off, c_sb, c_sh, sc_layer_off, sc_sb,
-                        sc_sh, scale, stream);
+                        sc_sh, scale * LOG2E, stream);
 }

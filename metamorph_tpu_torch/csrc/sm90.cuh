@@ -51,6 +51,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// four int8 values (one 32-bit word, lowest byte first) -> exact fp32
+// without I2F: each byte, biased to unsigned, becomes the low mantissa byte
+// of 2^23, and subtracting 2^23 + 128 leaves the value (a byte permute and
+// an add per value, both full-rate, where I2F runs at a sixteenth of it)
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + k)) -
+           8388736.f;
+}
+
+// two fp32 integers of magnitude <= 256 -> bf16x2 (first value in the low
+// half); their bf16 is exactly the upper half of their fp32 bits
+__device__ __forceinline__ uint32_t pack_bf16_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
 // ---------------------------------------------------------------- mbarrier
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -91,6 +109,18 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// a barrier among the first `n` threads of the CTA (id 1-15; id 0 is
+// __syncthreads), e.g. the consumer warpgroups without the producer
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// orders this thread's ordinary shared-memory stores before later reads
+// of the same bytes by wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------- TMA
@@ -282,6 +312,33 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Any 4-D tensor: `dims` (innermost first), byte strides of dims 1-3,
+// `box` elements per dim, element type and swizzle as given. A stride of a
+// dimension of extent 1 is never used and is kept legal. Returns 0 or a
+// cudaError_t.
+inline int make_map_box(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* base, const uint64_t dims[4],
+                        const int64_t byte_strides[3], const uint32_t box[4],
+                        CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  cuuint64_t d[4], s[3];
+  cuuint32_t b[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = (cuuint64_t)dims[i];
+    b[i] = (cuuint32_t)box[i];
+  }
+  for (int i = 0; i < 3; ++i)
+    s[i] = (cuuint64_t)((dims[i + 1] == 1 || byte_strides[i] <= 0)
+                            ? 16 : byte_strides[i]);
+  const CUresult r = encode(
+      map, type, 4, const_cast<void*>(base), d, s, b, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // A bf16 tensor [batch, heads, rows, D] with strides in elements (the head
 // dim contiguous), read in boxes of [box_rows, 64] with the 128-byte
 // swizzle. Rows, heads and batch are separate map dimensions, so a box that
@@ -290,24 +347,12 @@ inline EncodeTiledFn encode_tiled() {
 inline int make_map(CUtensorMap* map, const void* base, int D, int rows,
                     int heads, int batch, int64_t s_row, int64_t s_head,
                     int64_t s_batch, int box_rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  // the stride of a dimension of extent 1 is never used; keep it legal
-  auto stride = [](int extent, int64_t s) -> cuuint64_t {
-    return (cuuint64_t)((extent == 1 || s <= 0) ? 16 : s * 2);
-  };
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {stride(rows, s_row), stride(heads, s_head),
-                                 stride(batch, s_batch)};
-  const cuuint32_t box[4] = {(cuuint32_t)CHUNK, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)rows, (uint64_t)heads,
+                            (uint64_t)batch};
+  const int64_t strides[3] = {s_row * 2, s_head * 2, s_batch * 2};
+  const uint32_t box[4] = {(uint32_t)CHUNK, (uint32_t)box_rows, 1, 1};
+  return make_map_box(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A contiguous fp32 vector of n elements read in boxes of `box` (a

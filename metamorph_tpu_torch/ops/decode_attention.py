@@ -8,13 +8,18 @@ JAX module:
     token per batch row attends to the row's valid cache window
     [start, length). It has a bf16 instance and an int8 one (the cache
     holds int8 entries plus fp32 per-(token, kv head) scales, applied to
-    the score and to the probability, never to a dequantized slab);
-  * kernel E, `csrc/chunk_attn.cu`, replaces `_chunk_kernel` (chunked fill:
-    a C-token prompt chunk of one cache row, `chunk_attention`) and
-    `_chunk_kernel_batched` (speculative verification: every row's C-token
-    chunk against its own row, `chunk_attention_batched`). Key j is visible
-    to chunk token c iff j <= off + c; entries past the chunk may be stale
-    and only the mask keeps them out. bf16 and int8 instances.
+    the score and to the probability, never to a dequantized slab). Each
+    row's keys are split across CTAs (`decode_splits`, from S and the SM
+    count, never from `lengths`) and the last CTA of a (row, kv head)
+    merges the partials in the same launch (`merge_partials` is the
+    arithmetic in plain PyTorch, for the tests);
+  * kernel E, `csrc/chunk_attn.cu` + `csrc/chunk_fill.cu`, replaces
+    `_chunk_kernel` (chunked fill: a C-token prompt chunk of one cache
+    row, `chunk_attention`; wgmma + TMA, key splits from `fill_splits`)
+    and `_chunk_kernel_batched` (speculative verification: every row's
+    C-token chunk against its own row, `chunk_attention_batched`). Key j is
+    visible to chunk token c iff j <= off + c; entries past the chunk may
+    be stale and only the mask keeps them out. bf16 and int8 instances.
 
 CPU tensors take the plain PyTorch versions (`decode_attention_plain`, the
 counterpart of `decode_attention_xla`, and `chunk_attention_plain`): fp32
@@ -23,13 +28,19 @@ einsums over the dequantized slab. CUDA tensors launch a kernel or raise.
 Pass the whole stacked cache [L, B, KV, S, Dh] (and scales [L, B, KV, S])
 plus `layer`: the kernels offset their pointers by the layer, so no
 per-layer slice is copied. A decode row whose window is empty gets 0, as in
-the Pallas kernel.
+the Pallas kernel. The split kernels' fp32 partials go to a workspace, and
+their arrival counters to an int32 vector that each launch leaves at zero;
+the wrappers allocate both once per (device, shape) and reuse them, so
+calls for one shape must stay on one stream. No wrapper reads a device
+tensor to the host.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+import functools
+import math
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -39,14 +50,65 @@ NEG_INF = -1e30
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _F = ctypes.c_float
+# trailing (split_len, n_split, ws, counters) / (n_split, ws, counters)
+_SPLIT = [_I, _I, _P, _P, _P]
 DECODE_ATTN = Kernel("mm_decode_attn_bf16",
-                     [_P] * 6 + [_I] * 5 + [_L] * 3 + [_F, _P])
+                     [_P] * 6 + [_I] * 5 + [_L] * 3 + [_F] + _SPLIT)
 DECODE_ATTN_INT8 = Kernel("mm_decode_attn_int8",
-                          [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P])
+                          [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F] + _SPLIT)
 CHUNK_ATTN = Kernel("mm_chunk_attn_bf16",
-                    [_P] * 6 + [_I] * 6 + [_L] * 3 + [_F, _P])
+                    [_P] * 6 + [_I] * 7 + [_L] * 3 + [_F] + _SPLIT[1:])
 CHUNK_ATTN_INT8 = Kernel("mm_chunk_attn_int8",
-                         [_P] * 8 + [_I] * 6 + [_L] * 6 + [_F, _P])
+                         [_P] * 8 + [_I] * 7 + [_L] * 6 + [_F] + _SPLIT[1:])
+
+SPLIT_QUANTUM = 64      # kernel B's split length is a multiple of this
+MAX_SPLITS = 32         # kernel B's partials per (row, kv head), at most
+FILL_ROWS = 128         # packed query rows per CTA of the fill kernel
+FILL_MIN_SPLIT = 512    # keys of S per fill split, at least
+VERIFY_ROWS = 16        # packed rows (G * C) up to which chunk_attn.cu runs
+                        # its verify kernel (no key split) instead of the fill
+
+
+def decode_splits(S: int, B: int, KV: int, sm_count: int) -> Tuple[int, int]:
+    """Kernel B's key splits: (split_len, n_split) with split_len a
+    multiple of SPLIT_QUANTUM and split_len * n_split >= S, aiming at four
+    CTAs per SM over the (n_split, KV, B) grid (a 4,096-key row then takes
+    16 tiles of one CTA, which a 3-stage ring streams near the card's
+    rate), and at most MAX_SPLITS partials for the last CTA to merge. A
+    function of host-known sizes only: the rows' lengths live on the
+    device and are never read here."""
+    want = min(MAX_SPLITS, max(1, math.ceil(4 * sm_count / (B * KV))))
+    split = math.ceil(math.ceil(S / want) / SPLIT_QUANTUM) * SPLIT_QUANTUM
+    return split, math.ceil(S / split)
+
+
+def fill_splits(S: int, NB: int, C: int, G: int, KV: int,
+                sm_count: int) -> int:
+    """Key splits of the fill kernel: as many as keep the grid within one
+    wave of the card (one 384-thread CTA per SM), and no more than one per
+    FILL_MIN_SPLIT keys of S. Host-known sizes only (never the offsets)."""
+    ctas = NB * KV * math.ceil(G * C / FILL_ROWS)
+    return max(1, min(sm_count // ctas, math.ceil(S / FILL_MIN_SPLIT)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_SCRATCH: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(kind: str, dev, n_floats: int, n_counters: int):
+    """The split kernels' fp32 workspace and zeroed arrival counters, made
+    once per (kind, device, shape) and reused: each launch overwrites the
+    workspace and leaves the counters at zero."""
+    key = (kind, dev, n_floats, n_counters)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = (
+            torch.empty(n_floats, dtype=torch.float32, device=dev),
+            torch.zeros(n_counters, dtype=torch.int32, device=dev))
+    return _SCRATCH[key]
 
 
 def _dequant(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
@@ -82,6 +144,51 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.where(l == 0, torch.ones_like(l), l)
     o = torch.einsum("bkgs,bksd->bkgd", p, _dequant(v, v_scale))
     return o.reshape(B, H, Dh).to(q.dtype)
+
+
+def merge_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   lengths: torch.Tensor, starts: Optional[torch.Tensor],
+                   split: int, scale: Optional[float] = None,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B's split-and-merge arithmetic in fp32 (for the tests; the
+    path never calls it). Same arguments as `decode_attention_plain`, plus
+    the split length: split s holds the keys [s * split, (s + 1) * split)
+    of each row's window [start, length). Each split gives (m, l, o) in
+    the log2 domain with o unnormalised (an empty split: m = -1e30,
+    l = 0); the splits merge in order, skipping empty ones, and a row with
+    no visible key gets 0."""
+    B, H, Dh = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    n = math.ceil(S / split)
+    scale = scale if scale is not None else Dh ** -0.5
+    qg = q.float().reshape(B, KV, G, Dh)
+    s = torch.einsum("bkgd,bksd->bkgs", qg, k.float())
+    if k_scale is not None:
+        s = s * k_scale.float()[:, :, None]
+    s = s * (scale * math.log2(math.e))
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos < lengths.to(q.device)[:, None]
+    if starts is not None:
+        mask = mask & (pos >= starts.to(q.device)[:, None])
+    pad = n * split - S
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(B, KV, G, n, split)
+    mask = torch.nn.functional.pad(mask, (0, pad)).reshape(B, 1, 1, n, split)
+    vf = v.float() if v_scale is None else v.float() * v_scale.float()[..., None]
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad)).reshape(B, KV, n, split,
+                                                             Dh)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(-1)                                              # [B,KV,G,n]
+    p = torch.exp2(s - m[..., None]) * mask
+    l = p.sum(-1)
+    o = torch.einsum("bkgnj,bknjd->bkgnd", p, vf)
+    M = m.masked_fill(l == 0, NEG_INF).amax(-1, keepdim=True)
+    f = torch.where(l > 0, torch.exp2(m - M), torch.zeros_like(m))
+    L = (l * f).sum(-1)
+    O = (o * f[..., None]).sum(-2)
+    out = O / torch.where(L > 0, L, torch.ones_like(L))[..., None]
+    return out.reshape(B, H, Dh).to(q.dtype)
 
 
 def chunk_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -174,13 +281,17 @@ def _launch_decode(q, k, v, lengths, starts, layer: Optional[int],
     o = torch.empty((B, H, Dh), dtype=q.dtype, device=dev)
     layer_off = layer * k.stride(0) if k.dim() == 5 else 0
     st_ptr = None if starts is None else starts.data_ptr()
+    split_len, n_split = decode_splits(S, B, KV, _sm_count(dev.index))
+    ws, ctr = _scratch("decode", dev, B * H * n_split * (Dh + 2), B * KV)
+    split = (split_len, n_split, ws.data_ptr(), ctr.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if k_scale is None:
             DECODE_ATTN.launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 st_ptr, lengths.data_ptr(), B, H, KV, S, Dh,
-                layer_off, k.stride(-4), k.stride(-3), float(scale), stream)
+                layer_off, k.stride(-4), k.stride(-3), float(scale), *split,
+                stream)
         else:
             ksp, vsp, sc_off, sc_sb, sc_sh = _scale_args(k, k_scale, v_scale,
                                                          layer)
@@ -188,7 +299,7 @@ def _launch_decode(q, k, v, lengths, starts, layer: Optional[int],
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
                 o.data_ptr(), st_ptr, lengths.data_ptr(), B, H, KV, S, Dh,
                 layer_off, k.stride(-4), k.stride(-3), sc_off, sc_sb, sc_sh,
-                float(scale), stream)
+                float(scale), *split, stream)
     return o
 
 
@@ -228,22 +339,31 @@ def _launch_chunk(q, k, v, rows, offs, layer: int, scale: float, k_scale,
     _int32_vec("offs", offs, NB, dev)
     o = torch.empty_like(q)
     layer_off = layer * k.stride(0)
+    Bc, G = k.shape[1], H // KV
+    split = (1, None, None)          # the verify kernel takes no split
+    if G * C > VERIFY_ROWS:
+        n_split = fill_splits(S, NB, C, G, KV, _sm_count(dev.index))
+        if n_split > 1:
+            tiles = NB * KV * math.ceil(G * C / FILL_ROWS)
+            ws, ctr = _scratch("fill", dev, tiles * n_split * FILL_ROWS
+                               * (Dh + 2), tiles)
+            split = (n_split, ws.data_ptr(), ctr.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if k_scale is None:
             CHUNK_ATTN.launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                rows.data_ptr(), offs.data_ptr(), NB, C, H, KV, S, Dh,
-                layer_off, k.stride(1), k.stride(2), float(scale), stream,
-                site=site)
+                rows.data_ptr(), offs.data_ptr(), NB, C, H, KV, S, Dh, Bc,
+                layer_off, k.stride(1), k.stride(2), float(scale), *split,
+                stream, site=site)
         else:
             ksp, vsp, sc_off, sc_sb, sc_sh = _scale_args(k, k_scale, v_scale,
                                                          layer)
             CHUNK_ATTN_INT8.launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
                 o.data_ptr(), rows.data_ptr(), offs.data_ptr(), NB, C, H, KV,
-                S, Dh, layer_off, k.stride(1), k.stride(2), sc_off, sc_sb,
-                sc_sh, float(scale), stream, site=site)
+                S, Dh, Bc, layer_off, k.stride(1), k.stride(2), sc_off, sc_sb,
+                sc_sh, float(scale), *split, stream, site=site)
     return o
 
 

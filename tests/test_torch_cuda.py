@@ -116,6 +116,134 @@ def test_decode_int8_kernel_matches_plain(dev, G, Dh):
     assert torch.all(o[3] == 0)             # empty window [33, 33)
 
 
+def _decode_cache(gen, dev, quant, L, B, KV, S, Dh):
+    k = torch.randn(L, B, KV, S, Dh, generator=gen, device=dev)
+    v = torch.randn(L, B, KV, S, Dh, generator=gen, device=dev)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return k, v, dict(k_scale=ks, v_scale=vs)
+    return k.to(torch.bfloat16), v.to(torch.bfloat16), {}
+
+
+def _check_decode(q, k, v, lengths, starts, layer, sc):
+    """Kernel B on the stacked cache at `layer` against the plain version;
+    a second launch must give the same bits."""
+    kern = da.DECODE_ATTN_INT8 if sc else da.DECODE_ATTN
+    n0 = kern.launches
+    o = da.decode_attention(q, k, v, lengths, starts=starts, layer=layer, **sc)
+    again = da.decode_attention(q, k, v, lengths, starts=starts, layer=layer,
+                                **sc)
+    torch.cuda.synchronize()
+    assert kern.launches == n0 + 2
+    ref = da.decode_attention_plain(q.float(), k[layer], v[layer], lengths,
+                                    starts,
+                                    **{n: x[layer] for n, x in sc.items()})
+    assert torch.equal(o, again), "not bitwise repeatable"
+    assert torch.isfinite(o).all()
+    assert (o.float() - ref).abs().max().item() <= O_TOL
+    return o
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_split_kernel_one_long_row(dev, quant):
+    """A batch of one 4,096-key row at the 8B shape spreads over many key
+    splits (`decode_splits`), and their in-launch merge matches the plain
+    version, at the first and the last layer of the stacked cache."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    L, B, H, KV, S, Dh = 3, 1, 32, 8, 4096, 128
+    _, n_split = da.decode_splits(S, B, KV, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert n_split * KV >= 128
+    q = _randn(gen, dev, B, H, Dh)
+    k, v, sc = _decode_cache(gen, dev, quant, L, B, KV, S, Dh)
+    lengths = torch.tensor([S], dtype=torch.int32, device=dev)
+    for layer in (0, L - 1):
+        _check_decode(q, k, v, lengths, None, layer, sc)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_decode_split_kernel_at_split_edges(dev, quant, Dh, G):
+    """Windows that start and end at a split boundary and one key either
+    side of it, S not a multiple of the split, a row with an empty window
+    next to full rows, the stacked cache at layers 0 and L - 1; repeats
+    bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(21 + G)
+    L, KV, S = 2, 2, 1000
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B = 8
+    split, n_split = da.decode_splits(S, B, KV, sms)
+    assert S % split and n_split > 1
+    rows = [(0, S), (split - 1, 2 * split + 1), (split, 2 * split),
+            (split + 1, 2 * split - 1), (500, 500), (0, S),
+            (3, split + 1), (S - 1, S)]
+    q = _randn(gen, dev, B, KV * G, Dh)
+    k, v, sc = _decode_cache(gen, dev, quant, L, B, KV, S, Dh)
+    starts = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([r[1] for r in rows], dtype=torch.int32,
+                           device=dev)
+    for layer in (0, L - 1):
+        o = _check_decode(q, k, v, lengths, starts, layer, sc)
+        assert torch.all(o[4] == 0)          # [500, 500) is empty
+
+
+def _fill_cache(gen, dev, quant, L, B, KV, S, Dh, row, off, C):
+    """A stacked cache whose row `row` holds large stale values past the
+    chunk [off, off + C) (only the mask keeps them out)."""
+    k = torch.randn(L, B, KV, S, Dh, generator=gen, device=dev)
+    v = torch.randn(L, B, KV, S, Dh, generator=gen, device=dev)
+    k[:, row, :, off + C:] = 30.0
+    v[:, row, :, off + C:] = -50.0
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return k, v, ks, vs
+    return k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("C,G,S", [
+    (256, 4, 1300),     # the fill form's shape class; S not a tile multiple
+    (256, 1, 1300),
+    (256, 2, 1300),
+    (256, 8, 1300),
+    (64, 4, 1300),
+    (64, 1, 500),       # one key split: the CTA writes its output directly
+])
+def test_fill_kernel_at_offsets(dev, quant, Dh, C, G, S):
+    """Kernel E's fill form (the wgmma + TMA kernel, `chunk_fill.cu`) at
+    offsets 0, 64k +- 1, 1024 and S - C, with stale entries past the chunk,
+    against the plain version; repeats bitwise equal."""
+    gen = torch.Generator(device=dev).manual_seed(30 + G + C)
+    L, B, KV, row = 2, 3, 2, 1
+    H = KV * G
+    kern = da.CHUNK_ATTN_INT8 if quant else da.CHUNK_ATTN
+    q = _randn(gen, dev, C, H, Dh)
+    r_t = torch.tensor([row], dtype=torch.int32, device=dev)
+    offsets = {0, 63, 65, 127, 129, 1024, S - C}
+    for off in sorted(o for o in offsets if o <= S - C):
+        k, v, ks, vs = _fill_cache(gen, dev, quant, L, B, KV, S, Dh, row, off,
+                                   C)
+        off_t = torch.tensor([off], dtype=torch.int32, device=dev)
+        layer = (off // 64) % L
+        n0 = kern.launches
+        o = da.chunk_attention(q, k, v, r_t, off_t, layer=layer, k_scale=ks,
+                               v_scale=vs)
+        again = da.chunk_attention(q, k, v, r_t, off_t, layer=layer,
+                                   k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 2
+        ref = da.chunk_attention_plain(
+            q[None].float(), k[layer][r_t], v[layer][r_t], off_t,
+            k_scale=None if ks is None else ks[layer][r_t],
+            v_scale=None if vs is None else vs[layer][r_t])[0]
+        assert torch.equal(o, again), f"offset {off}: not bitwise repeatable"
+        assert torch.isfinite(o).all()
+        err = (o.float() - ref).abs().max().item()
+        assert err <= O_TOL, (off, err)
+
+
 def _chunk_case(dev, quant, NB, C, H, KV, Dh, offs, seed):
     """q [NB, C, H, Dh] and a stacked cache whose entries past each chunk
     are large stale values (only the mask keeps them out)."""

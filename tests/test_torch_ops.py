@@ -245,6 +245,74 @@ def test_decode_int8_plain_matches_jax_kernel(layer, with_starts):
     np.testing.assert_allclose(out, ref, **ATT_TOL)
 
 
+def _split_windows(split, S):
+    """(start, length) rows around one split length: shorter than a split,
+    starting mid-split, ending at a split boundary and one either side,
+    spanning boundaries, the whole cache, and an empty window."""
+    return [(3, 10), (split // 2 + 1, split + 5), (0, split),
+            (0, split + 1), (1, split - 1), (split - 1, 2 * split + 1),
+            (0, S), (7, 7)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("split", [16, 64, 256])
+def test_decode_split_merge_matches_plain_and_jax(split, quant):
+    """`merge_partials`, kernel B's split-and-merge arithmetic in fp32,
+    against the plain version and the Pallas decode kernel: each window
+    cut into fixed splits, an (m, l, o) per split, merged in split order.
+    The empty window gives 0."""
+    L, H, KV, S, Dh = 2, 8, 2, 576, 64
+    rows = _split_windows(split, S)
+    B = len(rows)
+    starts = np.asarray([r[0] for r in rows], np.int32)
+    lengths = np.asarray([r[1] for r in rows], np.int32)
+    q = _np((B, H, Dh), 50 + split)
+    k, v = _np((L, B, KV, S, Dh), 51), _np((L, B, KV, S, Dh), 52)
+    scales = {}
+    if quant:
+        k, v, ks, vs = _int8_cache(k, v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    ref = np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        starts=jnp.asarray(starts), block_s=64, layer=1,
+        **{n: jnp.asarray(x) for n, x in scales.items()}))
+    t = torch.from_numpy
+    lay = {n: t(x[1]) for n, x in scales.items()}
+    merged = da.merge_partials(t(q), t(k[1]), t(v[1]), t(lengths), t(starts),
+                               split, **lay).numpy()
+    plain = da.decode_attention_plain(t(q), t(k[1]), t(v[1]), t(lengths),
+                                      t(starts), **lay).numpy()
+    np.testing.assert_allclose(merged, plain, **ATT_TOL)
+    np.testing.assert_allclose(merged, ref, **ATT_TOL)
+    assert np.all(merged[-1] == 0)               # [7, 7) is empty
+
+
+def test_split_counts_read_only_host_sizes():
+    """Kernel B's and the fill kernel's split counts are functions of
+    host-known sizes (S, batch, heads, SM count), never of the rows'
+    lengths or offsets, which live on the device. Kernel B's grid holds
+    about four CTAs per SM at the decode step's shape (B = 8, KV = 8,
+    S = 4096) and spreads a single 4,096-key row over 256 CTAs; the fill
+    form at C = 256 fills about one wave."""
+    import inspect
+
+    assert list(inspect.signature(da.decode_splits).parameters) == [
+        "S", "B", "KV", "sm_count"]
+    assert list(inspect.signature(da.fill_splits).parameters) == [
+        "S", "NB", "C", "G", "KV", "sm_count"]
+    for S, B, KV in ((4096, 8, 8), (4096, 1, 8), (700, 4, 2), (4108, 8, 8),
+                     (33, 2, 1)):
+        split, n = da.decode_splits(S, B, KV, 132)
+        assert split % da.SPLIT_QUANTUM == 0
+        assert split * (n - 1) < S <= split * n
+    assert da.decode_splits(4096, 8, 8, 132) == (512, 8)    # 512 CTAs
+    assert da.decode_splits(4096, 1, 8, 132) == (128, 32)   # 256 CTAs
+    n = da.fill_splits(4096, 1, 256, 4, 8, 132)
+    assert n == 2 and 64 * n <= 132
+    assert da.fill_splits(4096, 8, 256, 4, 8, 132) == 1
+    assert da.fill_splits(300, 1, 64, 2, 2, 132) == 1
+
+
 def _chunk_cache(quant, seed, L=2, B=3, KV=2, S=64, Dh=32, junk_from=None):
     """Stacked cache as numpy (bf16-valued fp32, or int8 + scales). Rows
     listed in `junk_from` {row: position} get large stale values from that
