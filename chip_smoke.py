@@ -473,9 +473,11 @@ def phase_option_kernels(torch, dev, S: int = 4096):
     at the serving options' main-path shapes (cache length S), against
     their plain versions on the same inputs. Tolerance: DECODE_TOL of
     max|ref| over each query row's head vector (bf16 output; the chunk
-    kernel also rounds P to bf16 for its PV product). Per row, because a
-    row that sees one key has |o| ~ 3 and one that sees 4,096 has ~0.05:
-    a bound scaled by the whole case would let the long rows be wrong."""
+    kernel also rounds P to bf16 for its PV product); two launches give
+    equal bits, and the split kernels' arrival counters end at zero. Per
+    row, because a row that sees one key has |o| ~ 3 and one that sees
+    4,096 has ~0.05: a bound scaled by the whole case would let the long
+    rows be wrong."""
     import torch.nn.functional as F
 
     from metamorph_tpu_torch.ops import decode_attention as da
@@ -495,12 +497,15 @@ def phase_option_kernels(torch, dev, S: int = 4096):
         # each (query, head) row against its own magnitude; the floor only
         # guards a row with no visible key, whose output is 0
         rel = (diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-3)).max()
+        # the split kernels' arrival counters are back at zero
         row.update(max_abs_err=diff.max().item(), max_rel_err=rel.item(),
                    tol_rel=DECODE_TOL,
-                   bitwise_repeat=bool(torch.equal(out, again)))
+                   bitwise_repeat=bool(torch.equal(out, again)),
+                   counters_zero=all(bool((ctr == 0).all())
+                                     for _, ctr in da._SCRATCH.values()))
         log(name, json.dumps(row))
         if not (rel.item() <= DECODE_TOL and torch.isfinite(out).all()
-                and row["bitwise_repeat"]):
+                and row["bitwise_repeat"] and row["counters_zero"]):
             raise AssertionError(f"{name} disagrees with plain or does not "
                                  f"repeat: {row}")
 
@@ -1260,8 +1265,9 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
 
 
 def check_no_spills(ptxas_log: str) -> None:
-    """Kernels A, D and E's fill form keep their accumulators in registers:
-    each of their entries in nvcc's `-Xptxas -v` output must spill nothing.
+    """Kernels A, C, D and E's fill form keep their accumulators in
+    registers: each of their entries in nvcc's `-Xptxas -v` output must
+    spill nothing.
     (An empty log means this process reused an earlier build and has
     nothing to read.)"""
     spills, entry = {}, None
@@ -1274,14 +1280,15 @@ def check_no_spills(ptxas_log: str) -> None:
         log("build: reused an earlier library; spills not read")
         return
     hot = {e: v for e, v in spills.items()
-           if any(k in e for k in ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+           if any(k in e for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                   "flash_bwd_dkv_kernel",
                                    "chunk_fill_kernel"))}
     bad = {e: v for e, v in hot.items()
            if "0 bytes spill stores, 0 bytes spill loads" not in v}
-    if len(hot) < 8 or bad:
-        raise AssertionError(f"kernels A/D/E-fill spill or were not found in "
-                             f"the ptxas output: {bad or hot}")
-    log(f"build: kernels A, D and E's fill form, {len(hot)} entries, "
+    if len(hot) < 10 or bad:
+        raise AssertionError(f"kernels A/C/D/E-fill spill or were not found "
+                             f"in the ptxas output: {bad or hot}")
+    log(f"build: kernels A, C, D and E's fill form, {len(hot)} entries, "
         f"no spills")
 
 

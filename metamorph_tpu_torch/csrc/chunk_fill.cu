@@ -473,14 +473,8 @@ int launch_fill(const void* q, const void* k, const void* v, const float* ks,
   }
   if (err) return err;
   constexpr int bytes = FillSmem<D, T>::BYTES;
-  static bool sized = false;   // once per instantiation and process
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        chunk_fill_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  const cudaError_t e = smem_opt_in<chunk_fill_kernel<D, T>>(bytes);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(n_rt * n_split, KV, NB);
   chunk_fill_kernel<D, T><<<grid, THREADS, bytes, st>>>(
       qm, km, vm, ks, vs, o, rows, offs, C, H, KV, S, n_split, sc_layer_off,

@@ -72,25 +72,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// 16 bytes global -> shared; with ok = false nothing is read and the 16
-// bytes are zero-filled (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <int D, int G, typename T>
 struct DecSmem {
   static constexpr int ROWB = D * (int)sizeof(T);   // bytes of a cache row
@@ -185,14 +166,14 @@ decode_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
         const int u = i % LPK;      // 16-byte unit of the row
         const bool ok = k0 + r < hi;
         const int64_t off = (int64_t)(ok ? k0 + r : lo) * D + u * EPV;
-        cp_async16(kd + r * ROWB + u * 16, kb + off, ok);
-        cp_async16(vd + r * ROWB + u * 16, vb + off, ok);
+        sm90::cp_async16(kd + r * ROWB + u * 16, kb + off, ok);
+        sm90::cp_async16(vd + r * ROWB + u * 16, vb + off, ok);
       }
     };
 #pragma unroll
     for (int t = 0; t < STAGES - 1; ++t) {
       if (t < n_tiles) load_tile(t);
-      cp_commit();
+      sm90::cp_commit();
     }
 
     float m_r[HPW], l_r[HPW];
@@ -210,10 +191,10 @@ decode_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
     const int ksub = tid / DG;      // and its keys: ksub, ksub + NKS, ...
 
     for (int t = 0; t < n_tiles; ++t) {
-      cp_wait<STAGES - 2>();
+      sm90::cp_wait<STAGES - 2>();
       __syncthreads();              // tile t landed; tile t - 1 is consumed
       if (t + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1);
-      cp_commit();
+      sm90::cp_commit();
       const unsigned char* kd = ring + (t % STAGES) * 2 * TILEB;
       const unsigned char* vd = kd + TILEB;
       const int k0 = lo + t * TK;
@@ -324,7 +305,7 @@ decode_attn_kernel(const bf16* __restrict__ q, const T* __restrict__ kc,
     }
 
     // this CTA's partial: PV sums over the key subsets, in a fixed order
-    cp_wait<0>();
+    sm90::cp_wait<0>();
     __syncthreads();                // the ring is dead; reuse it
 #pragma unroll
     for (int g = 0; g < G; ++g)
@@ -400,14 +381,9 @@ int launch_g(dim3 grid, cudaStream_t st, const bf16* q, const T* kc,
              int64_t sc_layer_off, int64_t sc_sb, int64_t sc_sh,
              float scale_log2, float* ws, int* counters) {
   constexpr int bytes = DecSmem<D, G, T>::BYTES;
-  static bool sized = false;   // once per instantiation and process
-  if (!sized) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel<D, G, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  const cudaError_t e =
+      sm90::smem_opt_in<decode_attn_kernel<D, G, T>>(bytes);
+  if (e != cudaSuccess) return (int)e;
   decode_attn_kernel<D, G, T><<<grid, NT, bytes, st>>>(
       q, kc, vc, ks, vs, o, starts, lengths, H, S, split_len, layer_off,
       c_sb, c_sh, sc_layer_off, sc_sb, sc_sh, scale_log2, ws, counters);

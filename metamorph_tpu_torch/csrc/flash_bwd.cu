@@ -22,40 +22,48 @@
 // the tensor cores are the resource that matters.
 //
 // What the design does about it: every product runs on the tensor cores
-// and the softmax never leaves registers.
-//   * Kernel C (the first, simple design; `mma.sync.m16n8k16` bf16 -> fp32,
-//     no pipelining): one CTA per (batch row, q head, 64-row q tile); four
-//     warps own 16 q rows each and keep Q and dO as A fragments in
-//     registers. K/V tiles of 64 keys are staged in padded shared memory
-//     (row stride Dh+8, conflict-free fragment reads); the key loop ends at
-//     min(length, causal end), as kernel A's does. dS leaves the score
-//     registers as the A operand of dS K directly (the m16n8 accumulator
-//     layout is the m16n8k16 A layout), rounded to bf16.
-//   * Kernel D (Hopper design, helpers in sm90.cuh): one CTA per (kv head,
-//     batch row, 128-key tile), key tile 0 (the heaviest when causal)
-//     launched first. Two consumer warpgroups own 64 keys each; one thread
-//     of a producer warpgroup issues the TMA loads, and `setmaxnreg` moves
-//     registers from the producer (24) to the consumers (240). K and V are
-//     loaded once; the producer then streams (Q, dO) tiles of 64 q rows,
-//     with their lse and delta rows, of every q head of the group — from
-//     the first q tile that can see the key tile (causal) to the end —
-//     through a 2-stage ring of shared-memory stages guarded by full/empty
-//     mbarriers, so loads overlap the math. Per tile, S^T = K Q^T and
-//     dP^T = V dO^T are wgmma m64n64k16 from shared memory (all K-major);
-//     P^T and dS^T come out of those accumulators already in the register
-//     A layout of dV += P^T dO and dK += dS^T Q, which are wgmma with dO
-//     and Q read as MN-major (transposed) B operands. Only tiles that cross
-//     the diagonal, the length or T are masked. dK and dV stay in fp32
-//     registers across the whole group and are written once.
+// through wgmma, tiles arrive by TMA while the previous one is used, and the
+// softmax never leaves registers. Both kernels share one shape (helpers in
+// sm90.cuh): two consumer warpgroups of 64 rows (or keys) each, and one
+// thread of a producer warpgroup that issues the TMA loads into a 2-stage
+// ring of shared-memory stages guarded by full/empty mbarriers;
+// `setmaxnreg` moves registers from the producer (24) to the consumers
+// (240).
+//   * Kernel C: one CTA per (q head, batch row, 128-row q tile), the
+//     heaviest causal q tiles launched first (the tile index counts down).
+//     Q and dO arrive once and stay in shared memory; each thread reads the
+//     lse and delta of its two q rows once. The producer streams (K, V)
+//     tiles of 64 keys up to min(length, causal end). Per tile, S = Q K^T
+//     and dP = dO V^T are wgmma m64n64k16 from shared memory (all
+//     K-major); dS = P (dP - dd) scale leaves the fp32 accumulator straight
+//     in the register A layout of dQ += dS K, a wgmma with K read as an
+//     MN-major B operand. Both warpgroups run every key tile of the CTA
+//     (the lower one's last causal tile gives P = 0): a branch around the
+//     wgmma chains makes ptxas serialise them (C7520), which measured
+//     slower than the wasted tile. dQ stays in fp32 registers (Dh/2 per
+//     thread) and is written once.
+//   * Kernel D: one CTA per (kv head, batch row, 128-key tile), key tile 0
+//     (the heaviest when causal) launched first; each consumer warpgroup
+//     owns 64 keys. K and V are loaded once; the producer then streams
+//     (Q, dO) tiles of 64 q rows, with their lse and delta rows, of every q
+//     head of the group — from the first q tile that can see the key tile
+//     (causal) to the end. Per tile, S^T = K Q^T and dP^T = V dO^T are
+//     wgmma m64n64k16 from shared memory (all K-major); P^T and dS^T come
+//     out of those accumulators already in the register A layout of
+//     dV += P^T dO and dK += dS^T Q, which are wgmma with dO and Q read as
+//     MN-major (transposed) B operands. dK and dV stay in fp32 registers
+//     across the whole group and are written once.
+//   In both, only tiles that cross the diagonal, the length or T are masked.
 //
 // Semantics held to the Pallas kernels: key j is visible to query row i iff
 // j < length[b] and (not causal or j <= i). P = exp(S*scale - lse) with the
-// scale applied in fp32 to the fp32 scores; the mask is applied before the
-// exp, so a row with no visible key (lse = -1e30) contributes nothing and
-// gets dq = 0. dS = P * (dP - dd) * scale with dd = delta - dlse (the lse
-// cotangent, zero when the lse was not used). Inputs and outputs are
-// addressed through strides, so the model layout [B, T, H, Dh] needs no
-// copies. No atomics: two launches on the same inputs give equal bits.
+// scale applied in fp32 to the fp32 scores; a masked entry gets P = 0
+// whatever its exp gives, so a row with no visible key (lse = -1e30)
+// contributes nothing and gets dq = 0. dS = P * (dP - dd) * scale with
+// dd = delta - dlse (the lse cotangent, zero when the lse was not used).
+// Inputs and outputs are addressed through strides, so the model layout
+// [B, T, H, Dh] needs no copies. No atomics: two launches on the same
+// inputs give equal bits.
 
 #include "sm90.cuh"
 
@@ -64,186 +72,215 @@ namespace {
 using sm90::bf16;
 using sm90::pack_bf16;
 
-constexpr int BM = 64;        // kernel C: q rows per CTA
-constexpr int BN = 64;        // kernel C: keys per tile
-constexpr int NWARPS = 4;     // kernel C: 16 q rows each
 constexpr float LOG2E = 1.44269504088896340736f;
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 -> bf16x2, first value in the low half
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// B fragment of a [k=16 rows, n=8 cols] slice of a row-major smem tile
-// whose rows are the product's depth: two k-consecutive values of column g.
-__device__ __forceinline__ void b_frag_kmajor(const bf16* p, int lds,
-                                              uint32_t& b0, uint32_t& b1) {
-  b0 = pack_bf16(p[0], p[lds]);
-  b1 = pack_bf16(p[8 * lds], p[9 * lds]);
-}
-
-// rows [r0, r0 + 64) of a [rows, D] strided bf16 matrix into a padded smem
-// tile; rows at or past `end` are zero
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           int64_t stride, int r0, int end) {
-  constexpr int LDS = D + 8;
-  constexpr int VPR = D / 8;
-  for (int i = threadIdx.x; i < 64 * VPR; i += NWARPS * 32) {
-    const int r = i / VPR;
-    const int cv = (i % VPR) * 8;
-    uint4 vec = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < end)
-      vec = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + cv);
-    *reinterpret_cast<uint4*>(dst + r * LDS + cv) = vec;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // kernel C: dq
 // ---------------------------------------------------------------------------
 
+constexpr int DQ_BM = 128;       // q rows per CTA: two consumer warpgroups
+constexpr int DQ_BN = 64;        // keys per streamed tile
+constexpr int DQ_STAGES = 2;     // (K, V) ring depth
+constexpr int DQ_THREADS = 384;  // 2 consumer warpgroups + 1 producer
+
 template <int D>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+struct DqSmem {
+  static constexpr int QD = DQ_BM * D * 2;     // bytes: the Q (or dO) tile
+  static constexpr int KV = DQ_BN * D * 2;     // one K (or V) stage
+  static constexpr int BYTES = 2 * QD + DQ_STAGES * 2 * KV + 64 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap dmap,
                     const float* __restrict__ lse,
                     const float* __restrict__ dd, bf16* __restrict__ dq,
                     const int* __restrict__ lengths, int H, int KV, int T,
-                    int S, int64_t q_sb, int64_t q_sh, int64_t q_st,
-                    int64_t k_sb, int64_t k_sh, int64_t k_st,
-                    int64_t v_sb, int64_t v_sh, int64_t v_st,
-                    int64_t d_sb, int64_t d_sh, int64_t d_st,
-                    int64_t g_sb, int64_t g_sh, int64_t g_st,
+                    int S, int64_t g_sb, int64_t g_sh, int64_t g_st,
                     float scale, int causal) {
-  constexpr int KC = D / 16;    // 16-deep chunks of the head dim
-  constexpr int NTO = D / 8;    // 8-wide n tiles of the head dim (dQ)
-  constexpr int LDS = D + 8;
-  __shared__ __align__(16) bf16 ks[BN * LDS];
-  __shared__ __align__(16) bf16 vs[BN * LDS];
+  using namespace sm90;
+  constexpr int NCH = D / CHUNK;
+  constexpr int QDB = DqSmem<D>::QD;
+  constexpr int KVB = DqSmem<D>::KV;
+  constexpr int NQ = D / 2;        // dQ accumulator floats per thread
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* dos = qs + QDB;
+  unsigned char* ks = dos + QDB;                // DQ_STAGES K tiles
+  unsigned char* vs = ks + DQ_STAGES * KVB;     // DQ_STAGES V tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + DQ_STAGES * KVB);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
 
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BM;   // heaviest first
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-
   const int length = max(0, min(lengths[b], S));
-  const int kv_end = causal ? min(length, q0 + BM) : length;
+  const int kv_end = causal ? min(length, q0 + DQ_BM) : length;
+  const int n_tiles = (kv_end + DQ_BN - 1) / DQ_BN;
 
-  const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* db = dout + b * d_sb + h * d_sh;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
-
-  const int r0 = q0 + warp * 16 + g;   // this thread's two q rows
-  const int r1 = r0 + 8;
-
-  uint32_t qf[KC][4], df[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int c = kc * 16 + tig * 2;
-    qf[kc][0] = r0 < T ? ld32(qb + r0 * q_st + c) : 0u;
-    qf[kc][1] = r1 < T ? ld32(qb + r1 * q_st + c) : 0u;
-    qf[kc][2] = r0 < T ? ld32(qb + r0 * q_st + c + 8) : 0u;
-    qf[kc][3] = r1 < T ? ld32(qb + r1 * q_st + c + 8) : 0u;
-    df[kc][0] = r0 < T ? ld32(db + r0 * d_st + c) : 0u;
-    df[kc][1] = r1 < T ? ld32(db + r1 * d_st + c) : 0u;
-    df[kc][2] = r0 < T ? ld32(db + r0 * d_st + c + 8) : 0u;
-    df[kc][3] = r1 < T ? ld32(db + r1 * d_st + c + 8) : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);   // every consumer thread releases
+    }
+    fence_barrier_init();
   }
-  const float* lrow = lse + ((int64_t)b * H + h) * T;
-  const float* drow = dd + ((int64_t)b * H + h) * T;
-  const float lse2[2] = {r0 < T ? lrow[r0] * LOG2E : 0.f,
-                         r1 < T ? lrow[r1] * LOG2E : 0.f};
-  const float ddr[2] = {r0 < T ? drow[r0] : 0.f, r1 < T ? drow[r1] : 0.f};
-  const float scale_log2 = scale * LOG2E;
+  __syncthreads();
 
-  float acc[NTO][4];
-#pragma unroll
-  for (int nt = 0; nt < NTO; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-
-  for (int k0 = 0; k0 < kv_end; k0 += BN) {
-    __syncthreads();            // the previous tile is fully consumed
-    stage_tile<D>(ks, kb, k_st, k0, kv_end);
-    stage_tile<D>(vs, vb, v_st, k0, kv_end);
-    __syncthreads();
-
-#pragma unroll
-    for (int c16 = 0; c16 < BN / 16; ++c16) {   // 16 keys at a time
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-        const int off = ((c16 * 2 + j) * 8 + g) * LDS + tig * 2;
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          mma_16816(s[j], qf[kc], ld32(ks + off + kc * 16),
-                    ld32(ks + off + kc * 16 + 8));
-          mma_16816(dp[j], df[kc], ld32(vs + off + kc * 16),
-                    ld32(vs + off + kc * 16 + 8));
-        }
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: Q and dO once, then (K, V) tiles through the ring
+    reg_dealloc<24>();
+    if (threadIdx.x == 256 && n_tiles > 0) {
+      mbar_arrive_expect_tx(q_full, 2 * QDB);
+      for (int c = 0; c < NCH; ++c) {
+        tma_load_4d(qs + c * DQ_BM * 128, &qmap, q_full, c * CHUNK, q0, h,
+                    b);
+        tma_load_4d(dos + c * DQ_BM * 128, &dmap, q_full, c * CHUNK, q0, h,
+                    b);
       }
-      // dS = P * (dP - dd) * scale, P masked before the exp
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = (e < 2) ? r0 : r1;
-          const int col = k0 + (c16 * 2 + j) * 8 + tig * 2 + (e & 1);
-          const bool ok = col < length && (!causal || col <= row);
-          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-          s[j][e] = p * (dp[j][e] - ddr[e >> 1]) * scale;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % DQ_STAGES;
+        mbar_wait(&empty[s], ((j / DQ_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], 2 * KVB);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load_4d(ks + s * KVB + c * DQ_BN * 128, &kmap, &full[s],
+                      c * CHUNK, j * DQ_BN, kvh, b);
+          tma_load_4d(vs + s * KVB + c * DQ_BN * 128, &vmap, &full[s],
+                      c * CHUNK, j * DQ_BN, kvh, b);
         }
-      }
-      uint32_t a[4];
-      a[0] = pack_bf16(s[0][0], s[0][1]);
-      a[1] = pack_bf16(s[0][2], s[0][3]);
-      a[2] = pack_bf16(s[1][0], s[1][1]);
-      a[3] = pack_bf16(s[1][2], s[1][3]);
-      // dQ += dS K: depth = these 16 keys, n = head dim
-      const bf16* kp = ks + (c16 * 16 + tig * 2) * LDS + g;
-#pragma unroll
-      for (int nt = 0; nt < NTO; ++nt) {
-        uint32_t b0, b1;
-        b_frag_kmajor(kp + nt * 8, LDS, b0, b1);
-        mma_16816(acc[nt], a, b0, b1);
       }
     }
-  }
+  } else {
+    reg_alloc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int tig = lane & 3;
+    const int row_lo = q0 + wg * 64;           // this warpgroup's first row
+    const int r0 = row_lo + warp * 16 + g;     // this thread's two q rows
+    const int r1 = r0 + 8;
+    const uint32_t qa = smem_u32(qs) + wg * 64 * 128;
+    const uint32_t da = smem_u32(dos) + wg * 64 * 128;
+    const float* lrow = lse + ((int64_t)b * H + h) * T;
+    const float* drow = dd + ((int64_t)b * H + h) * T;
+    const float lse2[2] = {r0 < T ? lrow[r0] * LOG2E : 0.f,
+                           r1 < T ? lrow[r1] * LOG2E : 0.f};
+    const float ddr[2] = {r0 < T ? drow[r0] : 0.f, r1 < T ? drow[r1] : 0.f};
+    const float scale_log2 = scale * LOG2E;
 
-  bf16* gb = dq + b * g_sb + h * g_sh;
+    float dqa[NQ];
 #pragma unroll
-  for (int nt = 0; nt < NTO; ++nt) {
-    const int c = nt * 8 + tig * 2;
-    if (r0 < T)
-      *reinterpret_cast<uint32_t*>(gb + r0 * g_st + c) =
-          pack_bf16(acc[nt][0], acc[nt][1]);
-    if (r1 < T)
-      *reinterpret_cast<uint32_t*>(gb + r1 * g_st + c) =
-          pack_bf16(acc[nt][2], acc[nt][3]);
+    for (int i = 0; i < NQ; ++i) dqa[i] = 0.f;
+
+    if (n_tiles > 0) mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % DQ_STAGES;
+      const int k0 = j * DQ_BN;
+      mbar_wait(&full[s], (j / DQ_STAGES) & 1);
+      const uint32_t ka = smem_u32(ks + s * KVB);
+      const uint32_t va = smem_u32(vs + s * KVB);
+      // S = Q K^T and dP = dO V^T: 64 q rows x 64 keys, all K-major
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+      // each chain's register operands are set before its wgmma.fence: a
+      // definition the compiler sinks past the fence makes ptxas inject a
+      // warpgroup wait (C7517/C7519), measured 5-8 % slower
+      fence_operands<32>(st);
+      fence_operands<32>(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const uint32_t qo = (kc / 4) * DQ_BM * 128 + (kc % 4) * 32;
+        const uint32_t ko = (kc / 4) * DQ_BN * 128 + (kc % 4) * 32;
+        mma_ss<64, 0>(st, desc_kmajor(qa + qo), desc_kmajor(ka + ko), 1);
+        mma_ss<64, 0>(dpt, desc_kmajor(da + qo), desc_kmajor(va + ko), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands<32>(st);
+      fence_operands<32>(dpt);
+
+      // dS = P (dP - dd) scale; rows are q rows, columns keys. Only a
+      // tile that crosses the length or the diagonal is masked.
+      const bool need_mask =
+          k0 + DQ_BN > length || (causal && k0 + DQ_BN - 1 > row_lo);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2f(fmaf(st[i], scale_log2, -lse2[r]));
+        if (need_mask) {
+          const int key = k0 + (i / 4) * 8 + tig * 2 + (i & 1);
+          if (!(key < length && (!causal || key <= (r ? r1 : r0))))
+            p = 0.f;
+        }
+        st[i] = p * (dpt[i] - ddr[r]) * scale;
+      }
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          sa[kc][r] = pack_bf16(st[8 * kc + 2 * r], st[8 * kc + 2 * r + 1]);
+      // dQ += dS K: depth = the tile's 64 keys, K read MN-major
+      fence_operands<16>(&sa[0][0]);
+      fence_operands<NQ>(dqa);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        mma_rs<D, 1>(dqa, sa[kc],
+                     desc_mnmajor(ka + kc * 16 * 128, DQ_BN * 128), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands<NQ>(dqa);
+      mbar_arrive(&empty[s]);
+    }
+
+    bf16* gb = dq + b * g_sb + h * g_sh;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb) {
+      const int c = nb * 8 + tig * 2;
+      if (r0 < T)
+        *reinterpret_cast<uint32_t*>(gb + r0 * g_st + c) =
+            pack_bf16(dqa[4 * nb], dqa[4 * nb + 1]);
+      if (r1 < T)
+        *reinterpret_cast<uint32_t*>(gb + r1 * g_st + c) =
+            pack_bf16(dqa[4 * nb + 2], dqa[4 * nb + 3]);
+    }
   }
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* d,
+              const float* lse, const float* dd, bf16* dq, const int* lengths,
+              int B, int H, int KV, int T, int S, const int64_t* sd,
+              float scale, int causal, cudaStream_t st) {
+  CUtensorMap qm, km, vm, dm;
+  int err = sm90::make_map(&qm, q, D, T, H, B, sd[2], sd[1], sd[0], DQ_BM);
+  if (!err)
+    err = sm90::make_map(&km, k, D, S, KV, B, sd[5], sd[4], sd[3], DQ_BN);
+  if (!err)
+    err = sm90::make_map(&vm, v, D, S, KV, B, sd[8], sd[7], sd[6], DQ_BN);
+  if (!err)
+    err = sm90::make_map(&dm, d, D, T, H, B, sd[11], sd[10], sd[9], DQ_BM);
+  if (err) return err;
+  constexpr int bytes = DqSmem<D>::BYTES;
+  const cudaError_t e = sm90::smem_opt_in<flash_bwd_dq_kernel<D>>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (T + DQ_BM - 1) / DQ_BM);
+  flash_bwd_dq_kernel<D><<<grid, DQ_THREADS, bytes, st>>>(
+      qm, km, vm, dm, lse, dd, dq, lengths, H, KV, T, S, sd[12], sd[13],
+      sd[14], scale, causal);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -485,14 +522,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* d,
   if (!err) err = sm90::make_map_f32(&ddm, dd, (int64_t)B * H * T, DKV_ROWS);
   if (err) return err;
   constexpr int bytes = DkvSmem<D>::BYTES;
-  static bool sized = false;   // once per instantiation and process
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  const cudaError_t e = sm90::smem_opt_in<flash_bwd_dkv_kernel<D>>(bytes);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(KV, B, (S + DKV_BN - 1) / DKV_BN);
   flash_bwd_dkv_kernel<D><<<grid, DKV_THREADS, bytes, st>>>(
       qm, km, vm, dm, lm, ddm, dk, dv, lengths, H, KV, T, S, sd[12], sd[13],
@@ -515,29 +546,20 @@ extern "C" int mm_flash_bwd_dq_bf16(
     int64_t d_sb, int64_t d_sh, int64_t d_st,
     int64_t g_sb, int64_t g_sh, int64_t g_st,
     float scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || T <= 0 || S <= 0)
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || T <= 0 || S <= 0 ||
+      B > 65535 || (T + DQ_BM - 1) / DQ_BM > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + BM - 1) / BM, H, B);
+  const int64_t sd[15] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
+                          v_st, d_sb, d_sh, d_st, g_sb, g_sh, g_st};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* dp = static_cast<const bf16*>(dout);
   bf16* gp = static_cast<bf16*>(dq);
-  if (D == 128) {
-    flash_bwd_dq_kernel<128><<<grid, NWARPS * 32, 0, st>>>(
-        qp, kp, vp, dp, lse, dd, gp, lengths, H, KV, T, S, q_sb, q_sh, q_st,
-        k_sb, k_sh, k_st, v_sb, v_sh, v_st, d_sb, d_sh, d_st, g_sb, g_sh,
-        g_st, scale, causal);
-  } else if (D == 64) {
-    flash_bwd_dq_kernel<64><<<grid, NWARPS * 32, 0, st>>>(
-        qp, kp, vp, dp, lse, dd, gp, lengths, H, KV, T, S, q_sb, q_sh, q_st,
-        k_sb, k_sh, k_st, v_sb, v_sh, v_st, d_sb, d_sh, d_st, g_sb, g_sh,
-        g_st, scale, causal);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (D == 128)
+    return launch_dq<128>(q, k, v, dout, lse, dd, gp, lengths, B, H, KV, T,
+                          S, sd, scale, causal, st);
+  if (D == 64)
+    return launch_dq<64>(q, k, v, dout, lse, dd, gp, lengths, B, H, KV, T, S,
+                         sd, scale, causal, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int mm_flash_bwd_dkv_bf16(

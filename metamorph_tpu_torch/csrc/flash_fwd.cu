@@ -261,14 +261,8 @@ int launch_fwd(const void* q, const void* k, const void* v, bf16* o,
   if (!err) err = make_map(&vm, v, D, S, KV, B, sd[8], sd[7], sd[6], BN);
   if (err) return err;
   constexpr int bytes = FwdSmem<D>::BYTES;
-  static bool sized = false;   // once per instantiation and process
-  if (!sized) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return (int)e;
-    sized = true;
-  }
+  const cudaError_t e = smem_opt_in<flash_fwd_kernel<D>>(bytes);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(H, B, (T + BM - 1) / BM);
   flash_fwd_kernel<D><<<grid, THREADS, bytes, st>>>(
       qm, km, vm, o, lse, lengths, H, KV, T, S, sd[9], sd[10], sd[11],

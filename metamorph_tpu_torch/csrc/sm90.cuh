@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the flash kernels: mbarriers,
-// TMA tile loads through tensor maps, wgmma shared-memory descriptors and
-// the wgmma instructions themselves, register reallocation. Inline PTX
-// only (no CUTLASS/CuTe), so a source that includes this builds in seconds.
+// Hopper (sm_90a) building blocks shared by the attention kernels:
+// mbarriers, cp.async copies, TMA tile loads through tensor maps, wgmma
+// shared-memory descriptors and the wgmma instructions themselves, register
+// reallocation, and the per-device opt-in to large dynamic shared memory.
+// Inline PTX only (no CUTLASS/CuTe), so a source that includes this builds
+// in seconds.
 //
 // Shared-memory tiles: every bf16 operand tile is loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B in boxes of [rows, 64] elements, so one box
@@ -34,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace sm90 {
 
@@ -123,6 +127,37 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---------------------------------------------------------------- cp.async
+
+// 16 bytes global -> shared; with ok = false nothing is read and the 16
+// bytes are zero-filled (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, zero-filled when !ok (src still valid)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------- TMA
 
 // box at element coordinates (c0 = head-dim column, c1 = row, c2 = head,
@@ -183,11 +218,20 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them
+// across the asynchronous wgmma that owns them; called before wgmma_fence,
+// it also keeps their definitions (zeroing) from sinking into the wgmma
+// window, where ptxas would inject a warpgroup wait (C7517/C7519)
 template <int R>
 __device__ __forceinline__ void fence_operands(float* d) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for 32-bit registers, e.g. bf16x2 A fragments
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 template <int R>
@@ -283,6 +327,27 @@ __device__ __forceinline__ void mma_rs(float* d, const uint32_t a[4],
 }
 
 // ---------------------------------------------------------------- host
+
+// Lets kernel `Fn` launch with `bytes` of dynamic shared memory on the
+// current device. cudaFuncSetAttribute acts on the current device's context
+// only, so the opt-in is made once per device ordinal: each instantiation
+// (one per kernel) keeps a bitmask of the devices it has been made on, and
+// ordinals past 63 make it at every launch. Setting the attribute is
+// idempotent, so two host threads that race on a device's first launch
+// only repeat it. Returns the cudaError_t.
+template <auto Fn>
+inline cudaError_t smem_opt_in(int bytes) {
+  static std::atomic<uint64_t> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (bit != 0 && (done.load(std::memory_order_relaxed) & bit)) return e;
+  e = cudaFuncSetAttribute(Fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   void*, const cuuint64_t*, const cuuint64_t*,

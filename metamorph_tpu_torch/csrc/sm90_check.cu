@@ -97,8 +97,7 @@ int launch_check(const void* a, const void* b, float* c, int mode,
                      : make_map(&bm, b, KD, N, 1, 1, KD, 0, 0, N);
   if (err) return err;
   constexpr int bytes = 64 * KD * 2 + N * KD * 2 + 64 + 1024;
-  cudaError_t e = cudaFuncSetAttribute(
-      sm90_check_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t e = smem_opt_in<sm90_check_kernel<N>>(bytes);
   if (e != cudaSuccess) return (int)e;
   sm90_check_kernel<N><<<1, 128, bytes, st>>>(
       am, bm, static_cast<const bf16*>(a), c, mode);

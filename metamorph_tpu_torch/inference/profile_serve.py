@@ -40,7 +40,7 @@ FILL_PROMPT = 2048
 
 # kernel groups by name, for the per-tick breakdown
 GROUPS = (("decode_attn", "decode_attn_kernel"),
-          ("chunk_attn", "chunk_attn_kernel"),
+          ("chunk_attn", "verify_attn_kernel"),
           ("chunk_fill", "chunk_fill_kernel"),
           ("flash_fwd", "flash_fwd_kernel"),
           ("gemm", ("gemm", "nvjet", "cutlass", "sm90_xmma", "gemv")))

@@ -1,4 +1,4 @@
-"""Kernel B and kernel E's fill form of two source trees, side by side on
+"""Kernel B and kernel E (both forms) of two source trees, side by side on
 one card.
 
 Builds every `csrc/*.cu` of this checkout and of another one, such as the
@@ -10,7 +10,12 @@ both in turns (other, this, this, other) at the serving path's shapes
   * K5 bf16: kernel B, B = 8 ragged rows (11,696 window keys);
   * K5 int8: kernel B's int8 branch, 8 full rows;
   * K6 bf16 and int8: kernel E's fill form, one 256-token chunk at offset
-    3840.
+    3840;
+  * K7 bf16 and int8: kernel E's verify form, 8 chunks of 4 tokens at
+    ragged offsets over a 4,108-token cache (`chip_smoke.py` 3c's case),
+    with stale entries past each chunk. This tree runs it at two grid
+    densities, VERIFY_CTAS_PER_SM = 4 and 8 (`this4`, `this8`: other,
+    this4, this8, this8, this4, other).
 Launches alternate between two layers of the stacked cache, so each finds
 its rows out of L2.
 
@@ -109,7 +114,8 @@ def _graph(fn, calls: int = 20) -> float:
 
 
 def _cases(dev, gen):
-    """(description, call(mod, layer) -> output, plain(mod) -> reference)."""
+    """(description, call(mod, layer) -> output, plain(mod) -> reference,
+    the trees in turn)."""
     L, B, H, KV, S, Dh = 2, 8, 32, 8, 4096, 128
 
     def randn(*shape):
@@ -124,6 +130,7 @@ def _cases(dev, gen):
     ragged = torch.tensor([1, 1024, 1025, 4096, 37, 2000, 3000, 513],
                           dtype=torch.int32, device=dev)
     full = torch.full((B,), S, dtype=torch.int32, device=dev)
+    turns = ("other", "this", "this", "other")
     for dtype, lengths in (("bf16", ragged), ("int8", full)):
         ck, cv, sc = caches[dtype]
         yield (dict(kernel="B", dtype=dtype, B=B, S=S,
@@ -133,7 +140,7 @@ def _cases(dev, gen):
                lambda m, ck=ck, cv=cv, sc=sc, n=lengths:
                    m.decode_attention_plain(
                        q.float(), ck[0], cv[0], n,
-                       **{a: x[0] for a, x in sc.items()}))
+                       **{a: x[0] for a, x in sc.items()}), turns)
     C, off, row = 256, S - 256, 5
     qc = randn(C, H, Dh).to(torch.bfloat16)
     r_t = torch.tensor([row], dtype=torch.int32, device=dev)
@@ -146,7 +153,34 @@ def _cases(dev, gen):
                    m.chunk_attention(qc, ck, cv, r_t, o_t, layer=l, **sc),
                lambda m, ck=ck, cv=cv, scr=scr:
                    m.chunk_attention_plain(qc[None].float(), ck[0][r_t],
-                                           cv[0][r_t], o_t, **scr)[0])
+                                           cv[0][r_t], o_t, **scr)[0],
+               turns)
+    del caches
+    # K7: the spec step's verify chunks (S = 4096 + spec_k + 8)
+    Sv, Cv = S + 12, 4
+    offs = [S - 4, 17, S // 4, S - 96, S * 5 // 8, 0, S * 13 // 16, S // 7]
+    k, v = randn(L, B, KV, Sv, Dh), randn(L, B, KV, Sv, Dh)
+    for r, off in enumerate(offs):     # stale entries past each chunk
+        k[:, r, :, off + Cv:] = 30.0
+        v[:, r, :, off + Cv:] = -50.0
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    caches = {"bf16": (k.to(torch.bfloat16), v.to(torch.bfloat16), {}),
+              "int8": (k8, v8, dict(k_scale=ks, v_scale=vs))}
+    del k, v
+    qv = randn(B, Cv, H, Dh).to(torch.bfloat16)
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    for dtype in ("bf16", "int8"):
+        ck, cv, sc = caches[dtype]
+        yield (dict(kernel="E verify", dtype=dtype, B=B, C=Cv, S=Sv,
+                    offs=offs),
+               lambda m, l, ck=ck, cv=cv, sc=sc:
+                   m.chunk_attention_batched(qv, ck, cv, offs_t, layer=l,
+                                             rows=rows, **sc),
+               lambda m, ck=ck, cv=cv, sc=sc:
+                   m.chunk_attention_plain(qv.float(), ck[0], cv[0], offs_t,
+                                           **{a: x[0] for a, x in sc.items()}),
+               ("other", "this4", "this8", "this8", "this4", "other"))
 
 
 def main(argv=None) -> int:
@@ -164,11 +198,16 @@ def main(argv=None) -> int:
     libs = _build_trees({n: r / "metamorph_tpu_torch" / "csrc"
                          for n, r in roots.items()})
     mods = {n: _wrappers(roots[n], n, libs[n]) for n in roots}
+    # this tree's verify form at two grid densities
+    for density in (4, 8):
+        mods[f"this{density}"] = _wrappers(roots["this"], f"this{density}",
+                                           libs["this"])
+        mods[f"this{density}"].VERIFY_CTAS_PER_SM = density
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
-    for res, call, plain in _cases(dev, gen):
-        for name in ("other", "this", "this", "other"):
+    for res, call, plain, turns in _cases(dev, gen):
+        for name in turns:
             mod = mods[name]
             ref = plain(mod)
             res[f"{name}_max_abs_err"] = (call(mod, 0).float() - ref).abs(

@@ -1,4 +1,4 @@
-"""Kernels A and D of two source trees, side by side on one card.
+"""Kernels A, C and D of two source trees, side by side on one card.
 
 Builds `flash_fwd.cu` and `flash_bwd.cu` (with the headers beside them) of
 this checkout and of another one, such as the parent commit unpacked with
@@ -6,8 +6,10 @@ this checkout and of another one, such as the parent commit unpacked with
 wrappers in turns (other, this, this, other) at the main paths' shapes
 (H = 32, KV = 8, Dh = 128): kernel A causal at T = 2048 (the prefill
 bucket) and T = 4096 (the train forward), non-causal T = 512 over S = 777,
-ragged; kernel D causal at T = 4096 and non-causal T = 512 over S = 777.
-Both entry points keep one C signature across the two trees.
+ragged; kernel C (dq) causal at T = 4096 and T = 2048 and non-causal
+T = 512 over S = 777 with an lse cotangent; kernel D causal at T = 4096 and
+non-causal T = 512 over S = 777. The entry points keep one C signature
+across the trees.
 
     python -m metamorph_tpu_torch.kernels.bench_flash_designs --other DIR
 
@@ -32,7 +34,7 @@ import torch
 from metamorph_tpu_torch.kernels import _build
 from metamorph_tpu_torch.ops import flash_attention as fa
 
-KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_DKV)
+KERNELS = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
 
 
 def _build_tree(csrc: Path, name: str) -> ctypes.CDLL:
@@ -85,6 +87,9 @@ def _cases(dev, gen):
             ("A", 1, 2048, 2048, True, [2048]),
             ("A", 1, 4096, 4096, True, [4096]),
             ("A", 2, 512, 777, False, [777, 600]),
+            ("C", 1, 4096, 4096, True, [4096]),
+            ("C", 1, 2048, 2048, True, [2048]),
+            ("C", 2, 512, 777, False, [777, 600]),
             ("D", 1, 4096, 4096, True, [4096]),
             ("D", 2, 512, 777, False, [777, 600])):
         # model layout, read through strides, as the main paths call them
@@ -98,6 +103,27 @@ def _cases(dev, gen):
                                               vt.float(), lengths, causal)
             call = lambda: fa._fwd(qt, kt, vt, lengths, causal, scale)[0]
             outs = lambda o: [(o, ref)]
+        elif kernel == "C":
+            # the non-causal case carries an lse cotangent, as ring
+            # attention's chunks do
+            o, lse = fa.flash_attention_plain(qt.float(), kt.float(),
+                                              vt.float(), lengths, causal)
+            o = o.to(torch.bfloat16)
+            dlse = None if causal else torch.randn(lse.shape, generator=gen,
+                                                   device=dev)
+            rq, _, _ = fa.flash_attention_bwd_plain(
+                qt.float(), kt.float(), vt.float(), o.float(), lse,
+                dot.float(), dlse, lengths, causal, scale)
+            dd = (dot.float() * o.float()).sum(-1)
+            dd = (dd if dlse is None else dd - dlse).contiguous()
+            dq = torch.empty_like(qt)
+
+            def call():
+                fa._launch_dq(qt, kt, vt, dot, lse, dd, dq, lengths, causal,
+                              scale)
+                return dq
+
+            outs = lambda r: [(r, rq)]
         else:
             o, lse = fa.flash_attention_plain(qt.float(), kt.float(),
                                               vt.float(), lengths, causal)
@@ -115,7 +141,7 @@ def _cases(dev, gen):
 
             outs = lambda r: [(r[0], rk), (r[1], rv)]
         yield dict(kernel=kernel, B=B, T=T, S=S, causal=causal,
-                   lengths=lens), call, outs
+                   lengths=lens, dlse=kernel == "C" and not causal), call, outs
 
 
 def main(argv=None) -> int:

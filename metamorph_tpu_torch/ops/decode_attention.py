@@ -17,9 +17,12 @@ JAX module:
     `_chunk_kernel` (chunked fill: a C-token prompt chunk of one cache
     row, `chunk_attention`; wgmma + TMA, key splits from `fill_splits`)
     and `_chunk_kernel_batched` (speculative verification: every row's
-    C-token chunk against its own row, `chunk_attention_batched`). Key j is
-    visible to chunk token c iff j <= off + c; entries past the chunk may
-    be stale and only the mask keeps them out. bf16 and int8 instances.
+    C-token chunk against its own row, `chunk_attention_batched`; kernel
+    B's split-and-merge on 16 packed rows, key splits from
+    `verify_splits`, `verify_merge_partials` the arithmetic in plain
+    PyTorch). Key j is visible to chunk token c iff j <= off + c; entries
+    past the chunk may be stale and are never loaded. bf16 and int8
+    instances.
 
 CPU tensors take the plain PyTorch versions (`decode_attention_plain`, the
 counterpart of `decode_attention_xla`, and `chunk_attention_plain`): fp32
@@ -61,12 +64,14 @@ CHUNK_ATTN = Kernel("mm_chunk_attn_bf16",
 CHUNK_ATTN_INT8 = Kernel("mm_chunk_attn_int8",
                          [_P] * 8 + [_I] * 7 + [_L] * 6 + [_F] + _SPLIT[1:])
 
-SPLIT_QUANTUM = 64      # kernel B's split length is a multiple of this
-MAX_SPLITS = 32         # kernel B's partials per (row, kv head), at most
+SPLIT_QUANTUM = 64      # kernels B's and E-verify's split lengths are
+                        # multiples of this
+MAX_SPLITS = 32         # partials per (row, kv head) or (chunk, kv head)
 FILL_ROWS = 128         # packed query rows per CTA of the fill kernel
 FILL_MIN_SPLIT = 512    # keys of S per fill split, at least
 VERIFY_ROWS = 16        # packed rows (G * C) up to which chunk_attn.cu runs
-                        # its verify kernel (no key split) instead of the fill
+                        # its verify kernel instead of the fill kernel
+VERIFY_CTAS_PER_SM = 4  # the verify kernel's grid density (CTAs per SM)
 
 
 def decode_splits(S: int, B: int, KV: int, sm_count: int) -> Tuple[int, int]:
@@ -80,6 +85,26 @@ def decode_splits(S: int, B: int, KV: int, sm_count: int) -> Tuple[int, int]:
     want = min(MAX_SPLITS, max(1, math.ceil(4 * sm_count / (B * KV))))
     split = math.ceil(math.ceil(S / want) / SPLIT_QUANTUM) * SPLIT_QUANTUM
     return split, math.ceil(S / split)
+
+
+def verify_splits(S: int, NB: int, KV: int, sm_count: int) -> int:
+    """Key splits of the verify kernel: about VERIFY_CTAS_PER_SM CTAs per
+    SM over the (n_split, KV, NB) grid, at most MAX_SPLITS partials for
+    the last CTA to merge. Host-known sizes only: the chunks' offsets live
+    on the device and are never read here. The kernel cuts the keys into
+    splits of `verify_split_len(S, n_split)`."""
+    want = min(MAX_SPLITS,
+               max(1, math.ceil(VERIFY_CTAS_PER_SM * sm_count / (NB * KV))))
+    split = math.ceil(math.ceil(S / want) / SPLIT_QUANTUM) * SPLIT_QUANTUM
+    return math.ceil(S / split)
+
+
+def verify_split_len(S: int, n_split: int) -> int:
+    """The verify kernel's split length (`chunk_attn.cu` computes the
+    same): the least multiple of SPLIT_QUANTUM with
+    n_split * split_len >= S."""
+    return (math.ceil(math.ceil(S / n_split) / SPLIT_QUANTUM)
+            * SPLIT_QUANTUM)
 
 
 def fill_splits(S: int, NB: int, C: int, G: int, KV: int,
@@ -189,6 +214,51 @@ def merge_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     O = (o * f[..., None]).sum(-2)
     out = O / torch.where(L > 0, L, torch.ones_like(L))[..., None]
     return out.reshape(B, H, Dh).to(q.dtype)
+
+
+def verify_merge_partials(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, offs: torch.Tensor, split: int,
+                          scale: Optional[float] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Kernel E verify form's split-and-merge arithmetic in fp32 (for the
+    tests; the path never calls it). Same arguments as
+    `chunk_attention_plain`, plus the split length: split s holds the keys
+    [s * split, (s + 1) * split) of each chunk's row, and chunk token c
+    sees key j iff j <= offs + c. Each split gives (m, l, o) per query in
+    the log2 domain with o unnormalised (an empty split: m = -1e30,
+    l = 0); the splits merge in order, skipping empty ones."""
+    NB, C, H, Dh = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    n = math.ceil(S / split)
+    pad = n * split - S
+    scale = scale if scale is not None else Dh ** -0.5
+    qg = q.float().reshape(NB, C, KV, G, Dh)
+    s = torch.einsum("nckgd,nksd->nkgcs", qg, k.float())
+    if k_scale is not None:
+        s = s * k_scale.float()[:, :, None, None]
+    s = s * (scale * math.log2(math.e))
+    last = offs.to(q.device).long()[:, None] + torch.arange(C, device=q.device)
+    mask = torch.arange(S, device=q.device)[None, None, :] <= last[..., None]
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(NB, KV, G, C, n, split)
+    mask = torch.nn.functional.pad(mask, (0, pad)).reshape(NB, 1, 1, C, n,
+                                                           split)
+    vf = v.float() if v_scale is None else v.float() * v_scale.float()[..., None]
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad)).reshape(NB, KV, n, split,
+                                                             Dh)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(-1)                                          # [NB,KV,G,C,n]
+    p = torch.exp2(s - m[..., None]) * mask
+    l = p.sum(-1)
+    o = torch.einsum("nkgcsj,nksjd->nkgcsd", p, vf)
+    M = m.masked_fill(l == 0, NEG_INF).amax(-1, keepdim=True)
+    f = torch.where(l > 0, torch.exp2(m - M), torch.zeros_like(m))
+    L = (l * f).sum(-1)
+    O = (o * f[..., None]).sum(-2)
+    out = O / torch.where(L > 0, L, torch.ones_like(L))[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(NB, C, H, Dh).to(q.dtype)
 
 
 def chunk_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -340,7 +410,7 @@ def _launch_chunk(q, k, v, rows, offs, layer: int, scale: float, k_scale,
     o = torch.empty_like(q)
     layer_off = layer * k.stride(0)
     Bc, G = k.shape[1], H // KV
-    split = (1, None, None)          # the verify kernel takes no split
+    split = (1, None, None)          # the fill kernel unsplit: no workspace
     if G * C > VERIFY_ROWS:
         n_split = fill_splits(S, NB, C, G, KV, _sm_count(dev.index))
         if n_split > 1:
@@ -348,6 +418,11 @@ def _launch_chunk(q, k, v, rows, offs, layer: int, scale: float, k_scale,
             ws, ctr = _scratch("fill", dev, tiles * n_split * FILL_ROWS
                                * (Dh + 2), tiles)
             split = (n_split, ws.data_ptr(), ctr.data_ptr())
+    else:
+        n_split = verify_splits(S, NB, KV, _sm_count(dev.index))
+        ws, ctr = _scratch("verify", dev, NB * KV * n_split * VERIFY_ROWS
+                           * (Dh + 2), NB * KV)
+        split = (n_split, ws.data_ptr(), ctr.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if k_scale is None:

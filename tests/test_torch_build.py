@@ -87,3 +87,26 @@ def test_only_cu_sources_compile_with_the_header_dir(csrc, monkeypatch):
     assert not list(out.parent.glob("*.o"))      # objects removed
     calls.clear()
     assert lib.build() == out and calls == []    # an unchanged tree is reused
+
+
+def test_shared_memory_opt_in_is_per_device():
+    """The dynamic shared-memory limit is raised per device, not once per
+    process: no CUDA source keeps a `static bool sized`, the one
+    cudaFuncSetAttribute is inside sm90.cuh's helper (which reads the
+    current device), and every launch with dynamic shared memory has its
+    own call of the helper beside it."""
+    import re
+
+    text = {p.name: p.read_text() for p in _build.sources() + _build.headers()}
+    assert not any("static bool sized" in t for t in text.values())
+    sets = {n: t.count("cudaFuncSetAttribute(") for n, t in text.items()}
+    assert sets == {**{n: 0 for n in text}, "sm90.cuh": 1}
+    helper = text["sm90.cuh"]
+    body = helper[helper.index("inline cudaError_t smem_opt_in("):]
+    assert body.index("cudaGetDevice(") < body.index("cudaFuncSetAttribute(")
+    for name, t in text.items():
+        launches = re.findall(r"<<<[^>]*>>>", t)
+        shared = [x for x in launches if x.count(",") >= 2]
+        assert all(re.search(r",\s*bytes\s*,", x) for x in shared), name
+        assert t.count("smem_opt_in<") == len(shared), name
+    assert sum(t.count("smem_opt_in<") for t in text.values()) == 7

@@ -302,6 +302,60 @@ def test_chunk_kernel_matches_plain(dev, quant, Dh, form, C, H, KV, offs):
     assert kern.launches == n0 + 2 and kern.sites[site] >= 2
 
 
+def _verify_counters_zero() -> bool:
+    return all(bool((ctr == 0).all()) for key, (_, ctr) in da._SCRATCH.items()
+               if key[0] == "verify")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("G,C", [(4, 4), (2, 4), (1, 4)],
+                         ids=["GC16", "GC8", "GC4"])
+def test_verify_kernel_at_split_edges(dev, quant, Dh, G, C):
+    """Kernel E's verify form (key splits merged in the launch) at the spec
+    step's cache length: one 4,096-key row among short rows, offset 0,
+    chunks whose last key ends a split or misses it by one either way, a
+    chunk that starts on a split boundary, stale entries past each chunk;
+    each (token, head) row within 2e-2 of its own max|ref|, repeats
+    bitwise equal, the arrival counters back at zero."""
+    gen = torch.Generator(device=dev).manual_seed(40 + G + Dh)
+    L, NB, KV, S = 2, 8, 8, 4108
+    H = KV * G
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = da.verify_split_len(S, da.verify_splits(S, NB, KV, sms))
+    offs = [S - 16, 0, split - C, split - C + 1, split - C - 1,
+            2 * split, 17, 3 * split - 2]
+    q = _randn(gen, dev, NB, C, H, Dh)
+    k = torch.randn(L, NB, KV, S, Dh, generator=gen, device=dev)
+    v = torch.randn(L, NB, KV, S, Dh, generator=gen, device=dev)
+    for r, off in enumerate(offs):
+        k[:, r, :, off + C:] = 30.0
+        v[:, r, :, off + C:] = -50.0
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    kern = da.CHUNK_ATTN_INT8 if quant else da.CHUNK_ATTN
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    for layer in (0, L - 1):
+        n0 = kern.launches
+        o, again = (da.chunk_attention_batched(q, k, v, offs_t, layer=layer,
+                                               k_scale=ks, v_scale=vs)
+                    for _ in range(2))
+        torch.cuda.synchronize()
+        assert kern.launches == n0 + 2
+        assert _verify_counters_zero()
+        ref = da.chunk_attention_plain(
+            q.float(), k[layer], v[layer], offs_t,
+            k_scale=None if ks is None else ks[layer],
+            v_scale=None if vs is None else vs[layer])
+        assert torch.equal(o, again), "not bitwise repeatable"
+        assert torch.isfinite(o).all()
+        rel = ((o.float() - ref).abs().amax(-1)
+               / ref.abs().amax(-1).clamp_min(1e-3))
+        assert rel.max().item() <= O_TOL, rel.amax((1, 2)).tolist()
+
+
 def test_int8_and_chunk_wrappers_refuse_what_the_kernels_do_not_take(dev):
     """Wrong dtypes, missing or mis-shaped scales, offsets of the wrong
     length and non-contiguous inputs raise before any launch."""
@@ -372,6 +426,9 @@ def _rel_err(x, ref):
     (1, 256, 256, 4, 1, [256], True, True),         # GQA x4, lse cotangent
     (2, 100, 257, 8, 4, [257, 70], False, True),    # non-causal, T != S
     (2, 70, 70, 2, 1, [0, 70], True, False),        # a row with no key
+    (1, 200, 200, 8, 2, [200], True, False),        # T % 128 = 72
+    (2, 192, 333, 4, 1, [333, 65], False, True),    # T % 128 = 64, S % 64
+    (2, 130, 130, 8, 8, [130, 0], True, True),      # 2 rows past a tile
 ])
 def test_flash_bwd_kernels_match_plain(dev, B, T, S, H, KV, lens, causal,
                                        with_dlse, Dh):
@@ -487,6 +544,9 @@ def _check_bwd(q, k, v, o, lse, do, lengths, causal):
     (2, 17, 17, 4, 2, [17, 9], True),            # shorter than any tile
     (1, 129, 129, 4, 1, [129], True),            # one row past a 128-row tile
     (1, 129, 129, 4, 1, [129], False),
+    (1, 64, 64, 4, 2, [64], True),               # half a 128-row q tile
+    (2, 191, 191, 8, 2, [191, 127], True),       # T, length % 64 = 63
+    (1, 257, 257, 4, 1, [257], True),
     (2, 100, 300, 8, 2, [257, 300], False),      # S = 300, length 257
     (2, 150, 150, 16, 2, [150, 100], True),      # GQA G = 8
     (1, 4096, 4096, 32, 8, [4096], True),        # the 8B train step's shape
@@ -529,6 +589,46 @@ def test_flash_kernels_read_strided_views(dev, Dh, causal):
                                  causal, Dh ** -0.5)
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
+
+
+def test_kernels_run_on_a_second_card():
+    """Kernels A-E on cuda:1 after cuda:0 in one process: each launch finds
+    its shared-memory opt-in made for its own device (the attribute is per
+    device) and agrees with its plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for index in (0, 1):
+        dev = torch.device("cuda", index)
+        gen = torch.Generator(device=dev).manual_seed(50)
+        B, T, H, KV, Dh = 2, 300, 8, 2, 128
+        q, k, v, do = (_randn(gen, dev, B, H, T, Dh),
+                       _randn(gen, dev, B, KV, T, Dh),
+                       _randn(gen, dev, B, KV, T, Dh),
+                       _randn(gen, dev, B, H, T, Dh))
+        lengths = torch.tensor([T, 200], dtype=torch.int32, device=dev)
+        o, lse = _check_fwd(q, k, v, lengths, True)             # A
+        _check_bwd(q, k, v, o, lse, do, lengths, True)          # C, D
+        L, S = 2, 700
+        cache = [_randn(gen, dev, L, B, KV, S, Dh) for _ in range(2)]
+        n = torch.tensor([700, 33], dtype=torch.int32, device=dev)
+        od = da.decode_attention(q[:, :, 0].contiguous(), *cache, n,
+                                 layer=1)                       # B
+        ref = da.decode_attention_plain(q[:, :, 0].float(), cache[0][1],
+                                        cache[1][1], n)
+        assert (od.float() - ref).abs().max().item() <= O_TOL
+        offs = torch.tensor([600, 5], dtype=torch.int32, device=dev)
+        qc = _randn(gen, dev, B, 4, H, Dh)
+        ov = da.chunk_attention_batched(qc, *cache, offs, layer=0)  # E
+        ref = da.chunk_attention_plain(qc.float(), cache[0][0], cache[1][0],
+                                       offs)
+        assert (ov.float() - ref).abs().max().item() <= O_TOL
+        qf = _randn(gen, dev, 256, H, Dh)
+        of = da.chunk_attention(qf, *cache, 1, 300, layer=0)    # E fill
+        ref = da.chunk_attention_plain(qf[None].float(), cache[0][0][1:2],
+                                       cache[1][0][1:2],
+                                       offs.new_tensor([300]))[0]
+        assert (of.float() - ref).abs().max().item() <= O_TOL
+        torch.cuda.synchronize(dev)
 
 
 DESC_CHECK = Kernel("mm_sm90_desc_check",

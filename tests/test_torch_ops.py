@@ -288,18 +288,31 @@ def test_decode_split_merge_matches_plain_and_jax(split, quant):
 
 
 def test_split_counts_read_only_host_sizes():
-    """Kernel B's and the fill kernel's split counts are functions of
-    host-known sizes (S, batch, heads, SM count), never of the rows'
-    lengths or offsets, which live on the device. Kernel B's grid holds
-    about four CTAs per SM at the decode step's shape (B = 8, KV = 8,
-    S = 4096) and spreads a single 4,096-key row over 256 CTAs; the fill
-    form at C = 256 fills about one wave."""
+    """Kernel B's, the fill kernel's and the verify kernel's split counts
+    are functions of host-known sizes (S, batch, heads, SM count), never
+    of the rows' lengths or offsets, which live on the device. Kernel B's
+    grid holds about four CTAs per SM at the decode step's shape (B = 8,
+    KV = 8, S = 4096) and spreads a single 4,096-key row over 256 CTAs;
+    the fill form at C = 256 fills about one wave; the verify form at the
+    spec step's shape (NB = 8, KV = 8, S = 4108) holds VERIFY_CTAS_PER_SM
+    CTAs per SM, and each of its splits starts inside S."""
     import inspect
 
     assert list(inspect.signature(da.decode_splits).parameters) == [
         "S", "B", "KV", "sm_count"]
     assert list(inspect.signature(da.fill_splits).parameters) == [
         "S", "NB", "C", "G", "KV", "sm_count"]
+    assert list(inspect.signature(da.verify_splits).parameters) == [
+        "S", "NB", "KV", "sm_count"]
+    for S, NB, KV in ((4108, 8, 8), (4108, 1, 8), (600, 5, 2), (64, 2, 1),
+                      (33, 1, 1), (70000, 1, 1)):
+        n = da.verify_splits(S, NB, KV, 132)
+        split = da.verify_split_len(S, n)
+        assert 1 <= n <= da.MAX_SPLITS and split % da.SPLIT_QUANTUM == 0
+        assert split * (n - 1) < S <= split * n
+    assert da.VERIFY_CTAS_PER_SM == 4
+    assert da.verify_splits(4108, 8, 8, 132) == 9           # 576 CTAs
+    assert da.verify_split_len(4108, 9) == 512
     for S, B, KV in ((4096, 8, 8), (4096, 1, 8), (700, 4, 2), (4108, 8, 8),
                      (33, 2, 1)):
         split, n = da.decode_splits(S, B, KV, 132)
@@ -311,6 +324,47 @@ def test_split_counts_read_only_host_sizes():
     assert n == 2 and 64 * n <= 132
     assert da.fill_splits(4096, 8, 256, 4, 8, 132) == 1
     assert da.fill_splits(300, 1, 64, 2, 2, 132) == 1
+
+
+def _verify_offsets(split, S, C):
+    """Chunk offsets around one split length: the visible range [0,
+    off + C) cut inside by a split boundary, ending exactly at a boundary
+    (off + C - 1 is a split's last key), ending one key either side of it,
+    in the first split only (the rest lie wholly past it), and at S - C."""
+    return [split + 5, 2 * split - C, 2 * split - C + 1, 2 * split - C - 1,
+            0, S - C]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("split", [16, 64, 128])
+def test_verify_split_merge_matches_plain_and_jax(split, quant):
+    """`verify_merge_partials`, kernel E verify form's split-and-merge
+    arithmetic in fp32, against the plain version and the Pallas
+    `_chunk_kernel_batched`: each chunk's row cut into fixed splits, an
+    (m, l, o) per split, merged in split order, with large stale entries
+    past each chunk that only the mask keeps out."""
+    S, C, H, KV, Dh = 320, 4, 8, 2, 32
+    offs = np.asarray(_verify_offsets(split, S, C), np.int32)
+    B = len(offs)
+    k, v, ks, vs = _chunk_cache(quant, 48 + split, B=B, KV=KV, S=S, Dh=Dh,
+                                junk_from={b: int(o) + C
+                                           for b, o in enumerate(offs)})
+    q = _np((B, C, H, Dh), 49 + split)
+    layer = 1
+    jkw = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                     v_scale=jnp.asarray(vs))
+    ref = np.asarray(jax_chunk_batched(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(offs),
+        layer=layer, block_s=16, **jkw))
+    t = torch.from_numpy
+    lay = {} if ks is None else dict(k_scale=t(ks[layer]),
+                                     v_scale=t(vs[layer]))
+    merged = da.verify_merge_partials(t(q), t(k[layer]), t(v[layer]),
+                                      t(offs), split, **lay).numpy()
+    plain = da.chunk_attention_plain(t(q), t(k[layer]), t(v[layer]),
+                                     t(offs), **lay).numpy()
+    np.testing.assert_allclose(merged, plain, **ATT_TOL)
+    np.testing.assert_allclose(merged, ref, **ATT_TOL)
 
 
 def _chunk_cache(quant, seed, L=2, B=3, KV=2, S=64, Dh=32, junk_from=None):
