@@ -56,7 +56,27 @@ Phases (any failure raises and the script exits nonzero):
                4096-token row with a prompt and an answer image; step time,
                tokens/s, peak memory; kernels A, C and D must run;
   5c. train() — the trainer loop at the 4b width: logging, saves, pruning and
-               a resume.
+               a resume;
+  8. the recipe's data path — a conversation JSONL written by the phase
+               (PNG images, or inline arrays through the metaclip route
+               where PIL does not import) tokenized by `word_tokenize`
+               (LLaMA-3 special ids), through LazySupervisedDataset ->
+               PackedCollator -> DataIterator -> train(), as
+               `train/main.py` builds them:
+     8a. at 5b's width and cut (T=4096, 4 steps): host ms per batch of
+               dataset + collate + pack, the native and the Python packer
+               per row, each step's loss and AR-token count against the
+               batch the iterator gives, the wait on the prefetch queue,
+               real tokens/s, peak memory (no checkpoint: the 8B state is
+               ~49 GB); then the same batches collated beforehand, so that
+               the loader's host share of the step shows; the native
+               packer must pack every batch, kernels A, C and D must run,
+               both runs must give the same losses, and the step time must
+               stay within 5 % of 5b's spread;
+     8b. at the 4b width: text-only and image rows, a run resumed from
+               the save at step 2 against an uninterrupted one (the same
+               batches); an anyres run (spatial_unpad, learned newline)
+               whose losses match the CPU on the same weights.
 
 The last two lines of stdout are the kernel summary JSON and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -69,11 +89,13 @@ import copy
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the 8B train step runs near the card's memory: let the allocator grow
@@ -126,6 +148,29 @@ def causal_pairs(T: int, lens) -> int:
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the LLaMA-3 ids of the template's specials and the two added vision tokens
+LLAMA3_SPECIALS = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
+                   "<|end_header_id|>": 128007, "<|eot_id|>": 128009,
+                   "<image_start>": 128256, "<image_end>": 128257}
+_SPECIAL_SPLIT = re.compile(
+    "(" + "|".join(re.escape(s) for s in LLAMA3_SPECIALS) + ")")
+
+
+def word_tokenize(text: str) -> list:
+    """A deterministic word-level stand-in for the LLaMA-3 tokenizer: it
+    prepends <|begin_of_text|> as HF's does (the round masking counts on
+    it), keeps the specials at their LLaMA-3 ids, and maps each
+    whitespace-separated word to 1000 + crc32(word) % 100000."""
+    ids = [LLAMA3_SPECIALS["<|begin_of_text|>"]]
+    for chunk in _SPECIAL_SPLIT.split(text):
+        if chunk in LLAMA3_SPECIALS:
+            ids.append(LLAMA3_SPECIALS[chunk])
+        else:
+            ids.extend(1000 + zlib.crc32(w.encode()) % 100000
+                       for w in chunk.split())
+    return ids
 
 
 def smi_line() -> str:
@@ -1168,11 +1213,385 @@ def phase_trainer(torch, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the recipe's data path
+# ---------------------------------------------------------------------------
+
+RECIPE_TRAIN_STEPS = 4
+STEP_SPREAD_MARGIN = 0.05   # 8a's step against 5b's spread, either side
+
+
+def write_recipe_jsonl(d: str, seed: int, n_rows: int = 12,
+                       image_hw=((480, 640), (384, 512), (600, 400)),
+                       words=(700, 3400), use_files: bool = True) -> str:
+    """A conversation JSONL in the llama3 recipe's format, written into
+    `d` with its images: rows with one prompt image, rows whose gpt turn
+    holds an answer image (AR targets), multi-image and multi-turn rows;
+    long answers, so rows hold 1,000-4,000 tokens. Images are PNG files
+    (`use_files`), or pre-loaded arrays inline (the reference's metaclip
+    route, which needs no decoder) in a file whose name says `metacliptar`.
+    Row r holds r % 4 + 1 images at most (4 image slots per batch)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
+                                rng.integers(2, 9))) for _ in range(4000)]
+
+    def text(n):
+        return " ".join(rng.choice(vocab, n))
+
+    def image(i):
+        h, w = image_hw[i % len(image_hw)]
+        base = np.linspace(0, 255, w, dtype=np.float32)[None, :, None]
+        arr = (base + rng.normal(0, 30, (h, w, 3))).clip(0, 255)
+        return arr.astype(np.uint8)
+
+    name = "recipe.jsonl" if use_files else "recipe_metacliptar.jsonl"
+    rows = []
+    n_img = 0
+    for r in range(n_rows):
+        n_words = int(rng.integers(*words))
+        kind = r % 4
+        if kind == 0:       # one prompt image, a long answer
+            convs = [("human", "<image>\n" + text(30)),
+                     ("gpt", text(n_words))]
+            k = 1
+        elif kind in (1, 3):  # an answer image early in the gpt turn
+            convs = [("human", "<image>\n" + text(25) + " draw it"),
+                     ("gpt", text(12) + " <image> " + text(n_words))]
+            k = 2
+        else:               # two prompt images, then a second round
+            convs = [("human", "<image> <image>\n" + text(40)),
+                     ("gpt", text(n_words // 2)),
+                     ("human", text(20) + " <image> and this one"),
+                     ("gpt", text(n_words // 2))]
+            k = 3
+        arrays = [image(n_img + i) for i in range(k)]
+        n_img += k
+        if use_files:
+            from PIL import Image
+
+            paths = []
+            for i, arr in enumerate(arrays):
+                path = os.path.join(d, f"img_{r}_{i}.png")
+                Image.fromarray(arr).save(path)
+                paths.append(path)
+            images = paths
+        else:               # one stack per row: the arrays share a shape
+            images = np.stack([a[:96, :128] for a in arrays]).tolist()
+        rows.append({"id": f"recipe_{r}", "image": images,
+                     "conversations": [{"from": f, "value": v}
+                                       for f, v in convs]})
+    path = os.path.join(d, name)
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    return path
+
+
+def recipe_builder(cfg, d: str, data_path: str, **flags):
+    """`train.main`'s builder on the phase's tokenizer: the CLI flags of a
+    recipe run (the config JSON written into `d`), then the dataset,
+    collator and iterator, and the TrainerArgs."""
+    from metamorph_tpu_torch.train import main as cli
+
+    cfg_path = os.path.join(d, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    argv = ["--config", cfg_path, "--data-path", data_path,
+            "--tokenizer", "(word_tokenize)", "--output-dir",
+            os.path.join(d, "out"), "--group-by-modality-length"]
+    for k, v in flags.items():
+        argv += [f"--{k.replace('_', '-')}"] + ([] if v is True else [str(v)])
+    return cli.build(cli.parse_args(argv), cfg, word_tokenize)
+
+
+def read_metrics(out_dir: str) -> list:
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return [json.loads(l) for l in f]
+
+
+def phase_recipe_main(torch, dev, train_row):
+    """8a: the stage-2 recipe from a JSONL at LLaMA-3.1-8B + SO400M width:
+    dataset -> collator -> iterator -> train() on the card."""
+    import dataclasses
+
+    from metamorph_tpu_torch.config import MetaMorphConfig
+    from metamorph_tpu_torch.multimodal import native
+    from metamorph_tpu_torch.multimodal.packing import pack_sequences
+    from metamorph_tpu_torch.ops import flash_attention as fa
+    from metamorph_tpu_torch.train.profile_train import (STAGE2,
+                                                         stage2_one_card)
+    from metamorph_tpu_torch.train.trainer import train
+
+    cfg, reduced = stage2_one_card(4096)
+    reduced = dict(reduced, total_steps=RECIPE_TRAIN_STEPS)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, total_steps=RECIPE_TRAIN_STEPS))
+    full = MetaMorphConfig.from_json(STAGE2.read_text()).train
+    for k, v in reduced.items():
+        log(f"recipe main: reduced train.{k} {getattr(full, k)} -> {v}")
+    try:
+        import PIL  # noqa: F401
+        use_files = True
+    except ImportError:
+        use_files = False
+        log("recipe main: PIL does not import here; the images go inline "
+            "through the metaclip route (a 'metacliptar' data path)")
+    if not native.native_available():
+        raise AssertionError(f"the native packer did not build: "
+                             f"{native.NATIVE.error}")
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = write_recipe_jsonl(d, seed=0, use_files=use_files)
+        log(f"recipe main: wrote {path} ({os.path.getsize(path)} bytes, "
+            f"{'PNG files' if use_files else 'inline arrays'}) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        # the host side alone: a second iterator in the same order times
+        # dataset + collate + pack per batch and gives the batches the
+        # trainer will see
+        probe, _ = recipe_builder(cfg, d, path)
+        host_ms, expect = [], []
+        gen = iter(probe)
+        for _ in range(8):
+            t = time.perf_counter()
+            packed, pixels = next(gen)
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            if len(expect) < RECIPE_TRAIN_STEPS:
+                expect.append(dict(
+                    real_tokens=int(packed.attn_mask.sum()),
+                    n_image_ar_tokens=int(packed.image_ar_mask.sum()),
+                    n_text_tokens=int((packed.labels[:, 1:] != -100).sum()),
+                    images=int(packed.image_slot_used.sum())))
+        items = [probe.dataset[i] for i in range(4)]
+        ids = [[it["input_ids"]] for it in items]
+        labs = [[it["labels"]] for it in items]
+        K, T, N = cfg.mm.num_image_tokens, cfg.train.max_seq_len, \
+            cfg.train.max_images_per_batch
+        pack_ms = {}
+        for name, fn in (("native", native.pack_sequences_native),
+                         ("python", pack_sequences)) * 2:
+            t = time.perf_counter()
+            for a, b in zip(ids, labs):
+                fn(a, b, K, T, N)
+            pack_ms.setdefault(name, []).append(
+                (time.perf_counter() - t) * 1e3 / len(ids))
+        row_tokens = [len(it["input_ids"]) + 63 * it["input_ids"].count(-200)
+                      for it in items]
+        log("recipe main: host path", json.dumps(dict(
+            host_ms_per_batch=host_ms, expect=expect,
+            pack_ms_per_row={k: min(v) for k, v in pack_ms.items()},
+            first_rows_tokens=row_tokens)))
+        if not any(e["n_image_ar_tokens"] > 0 for e in expect):
+            raise AssertionError(f"no answer image in the first "
+                                 f"{RECIPE_TRAIN_STEPS} batches: {expect}")
+        del probe, gen, items
+
+        # no checkpoint: the 8B state is ~49 GB, more than the 45 GiB a
+        # chip machine's disk takes in all; 8b saves and resumes
+        data_iter, args = recipe_builder(cfg, d, path, save_steps=0,
+                                         no_resume=True)
+        kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+        for kern in kernels:
+            kern.launches = 0
+        native.PACKS.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train(cfg, args, data_iter, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in kernels}
+        packs = dict(native.PACKS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = read_metrics(args.output_dir)
+        saved = sorted(os.listdir(args.output_dir))
+        del out
+        free_memory(torch)
+        # the same batches collated beforehand: no loader work on the host
+        # while the steps run, so the difference in step time is the
+        # loader's share of the host (its Python competes for the GIL with
+        # the thread that launches the step's kernels)
+        ready_iter, ready_args = recipe_builder(
+            cfg, d, path, save_steps=0, no_resume=True,
+            output_dir=os.path.join(d, "ready"))
+        ready = [b for _, b in zip(range(RECIPE_TRAIN_STEPS), ready_iter)]
+        train(cfg, ready_args, ready, device=dev)
+        ready_steps = read_metrics(ready_args.output_dir)
+        del ready
+    free_memory(torch)
+
+    step_s = [m["step_s"] for m in steps]
+    ready_s = [m["step_s"] for m in ready_steps]
+    med = statistics.median(step_s[1:])
+    ref = train_row["step_s"][1:]
+    lo, hi = min(ref), max(ref)
+    real = sum(e["real_tokens"] for e in expect[1:])
+    row = dict(T=T, K=K, image_slots=N, reduced=reduced,
+               images="png" if use_files else "inline arrays",
+               losses=[m["loss"] for m in steps],
+               n_image_ar_tokens=[m["n_image_ar_tokens"] for m in steps],
+               step_s=step_s, step_s_median_2_4=med,
+               train_main_step_s_2_4=ref,
+               ready_batches_step_s=ready_s,
+               ready_batches_step_s_median_2_4=statistics.median(ready_s[1:]),
+               ready_batches_losses=[m["loss"] for m in ready_steps],
+               real_tokens_per_s=real / sum(step_s[1:]),
+               data_wait_s=[m["data_wait_s"] for m in steps],
+               host_ms_per_batch_median=statistics.median(host_ms),
+               host_ms_per_batch_max=max(host_ms),
+               pack_ms_per_row={k: min(v) for k, v in pack_ms.items()},
+               packs=packs, peak_mem_gib=peak, launches=launches,
+               train_wall_s=wall)
+    log("recipe main path", json.dumps(row))
+    for i, (m, e) in enumerate(zip(steps, expect)):
+        if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                       m.values())):
+            raise AssertionError(f"step {i + 1}: non-finite metric {m}")
+        if m["n_image_ar_tokens"] != e["n_image_ar_tokens"] or \
+                m["n_text_tokens"] != max(e["n_text_tokens"], 1):
+            raise AssertionError(f"step {i + 1} trained another batch than "
+                                 f"the iterator gives: {m} vs {e}")
+    if [m["loss"] for m in ready_steps] != [m["loss"] for m in steps]:
+        raise AssertionError("the batches collated beforehand trained to "
+                             "other losses")
+    if len(steps) != RECIPE_TRAIN_STEPS or saved != ["metrics.jsonl"]:
+        raise AssertionError(f"train() logged {len(steps)} steps and wrote "
+                             f"{saved}")
+    if packs.get("native", 0) < RECIPE_TRAIN_STEPS or packs.get("python"):
+        raise AssertionError(f"the native packer did not pack every batch: "
+                             f"{packs}")
+    for kern in kernels:
+        if kern.launches <= 0:
+            raise AssertionError(f"kernel {kern.symbol} was not launched by "
+                                 f"the recipe's data path")
+    if not lo * (1 - STEP_SPREAD_MARGIN) <= med <= \
+            hi * (1 + STEP_SPREAD_MARGIN):
+        raise AssertionError(
+            f"recipe step {med:.3f}s is outside the train main path's spread "
+            f"[{lo:.3f}, {hi:.3f}]s +-{STEP_SPREAD_MARGIN:.0%}")
+    return row
+
+
+def phase_recipe_small(torch, dev):
+    """8b at the 4b width: text-only and image rows, a resume from the data
+    state of the save at step 2 against an uninterrupted run; then an
+    anyres run on the card against the CPU on the same weights."""
+    import dataclasses
+    import signal
+
+    import numpy as np
+
+    from metamorph_tpu_torch.config import MultimodalConfig
+    from metamorph_tpu_torch.convert import from_jax_params, to_jax_params
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.train import train_step as TS
+    from metamorph_tpu_torch.train.optimizer import make_optimizer
+    from metamorph_tpu_torch.train.trainer import build_params, train
+
+    small = small_train_cfg(total_steps=4)
+    cfg = dataclasses.replace(small, train=dataclasses.replace(
+        small.train, max_seq_len=256, max_images_per_batch=4))
+    row = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = write_recipe_jsonl(d, seed=1, n_rows=6, image_hw=((40, 30),),
+                                  words=(20, 80))
+        with open(path, "a") as f:   # text-only rows: the dummy image
+            for i in range(4):
+                f.write(json.dumps({"id": f"text_{i}", "image": None,
+                                    "conversations": [
+                                        {"from": "human",
+                                         "value": "hello " * (i + 2)},
+                                        {"from": "gpt",
+                                         "value": "fine words " * (3 + i)}]})
+                        + "\n")
+        runs = {}
+        # only the interrupted run saves (at step 2, its last)
+        for name, total, save_steps, resume in (
+                ("whole", 4, 0, False), ("first", 2, 2, False),
+                ("resumed", 4, 0, True)):
+            out_dir = os.path.join(d, "whole" if name == "whole" else "cut")
+            run_cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, total_steps=total))
+            data_iter, args = recipe_builder(
+                run_cfg, d, path, save_steps=save_steps, output_dir=out_dir,
+                **({} if resume else {"no_resume": True}))
+            train(run_cfg, args, data_iter, device=dev)
+            runs[name] = read_metrics(out_dir)
+            if name == "first":
+                with open(os.path.join(out_dir, "step_2", "meta.json")) as f:
+                    saved_state = json.load(f)["data_state"]
+    for sig in (signal.SIGTERM, signal.SIGUSR1):
+        signal.signal(sig, signal.SIG_DFL)
+    whole, resumed = runs["whole"], runs["resumed"]
+    keys = ("n_text_tokens", "n_image_ar_tokens")
+    row["resume"] = dict(
+        data_state_at_save=saved_state,
+        whole=[{k: m[k] for k in keys + ("loss",)} for m in whole],
+        resumed=[{k: m[k] for k in keys + ("loss",)} for m in resumed])
+    log("recipe small: resume", json.dumps(row["resume"]))
+    if [m["step"] for m in resumed] != [1, 2, 3, 4] or \
+            [[m[k] for k in keys] for m in resumed[2:]] != \
+            [[m[k] for k in keys] for m in whole[2:]]:
+        raise AssertionError(f"the resumed run saw other batches than the "
+                             f"uninterrupted one: {row['resume']}")
+    if any(abs(a["loss"] - b["loss"]) > TRAIN_LOSS_RTOL * abs(b["loss"])
+           for a, b in zip(resumed[2:], whole[2:])):
+        raise AssertionError(f"the resumed run's losses differ: "
+                             f"{row['resume']}")
+
+    # anyres: pinpoints that are multiples of the tiny tower's 28 pixels
+    pins = ((28, 56), (56, 28), (56, 56))
+    acfg = dataclasses.replace(cfg, mm=MultimodalConfig(
+        num_image_tokens=4, image_token_reduction="none",
+        image_aspect_ratio="anyres", mm_patch_merge_type="spatial_unpad",
+        image_grid_pinpoints=pins), train=dataclasses.replace(
+            cfg.train, total_steps=2, batch_size=2, max_images_per_batch=6))
+    with tempfile.TemporaryDirectory() as d:
+        path = write_recipe_jsonl(d, seed=2, n_rows=4,
+                                  image_hw=((30, 60), (50, 20)),
+                                  words=(20, 60))
+        flags = dict(image_aspect_ratio="anyres", no_resume=True,
+                     save_steps=0)
+        data_iter, args = recipe_builder(acfg, d, path, **flags)
+        tree = to_jax_params(build_params(acfg, args, device=dev))
+        train(acfg, args, data_iter, device=dev)
+        card = read_metrics(args.output_dir)
+        probe, _ = recipe_builder(acfg, d, path, **flags)
+        batches = [b for _, b in zip(range(2), iter(probe))]
+    for sig in (signal.SIGTERM, signal.SIGUSR1):
+        signal.signal(sig, signal.SIG_DFL)
+    model = from_jax_params(tree, acfg, device="cpu", dtype=torch.float32)
+    state = TS.init_train_state(model, acfg)
+    tx = make_optimizer(acfg.train, model)
+    cpu = []
+    for packed, pixels in batches:
+        if packed.view_map is None:
+            raise AssertionError("the anyres collator gave no view_map")
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+                 for k, v in batch_to_arrays(packed).items()}
+        state, m = TS.train_step(state, batch, torch.from_numpy(pixels),
+                                 acfg, tx)
+        cpu.append({k: float(v) for k, v in m.items()})
+    err = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(card, cpu)]
+    row["anyres"] = dict(card=[m["loss"] for m in card],
+                         cpu=[m["loss"] for m in cpu], loss_rel_err=err,
+                         tol=TRAIN_LOSS_RTOL)
+    log("recipe small: anyres (card bf16 vs CPU fp32)",
+        json.dumps(row["anyres"]))
+    if len(card) != 2 or max(err) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"anyres train() on the card disagrees with "
+                             f"the CPU: {row['anyres']}")
+    return row
+
+
 def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
-                   options_rows, train_row) -> dict:
+                   options_rows, train_row, recipe_row) -> dict:
     """The summary line: one entry per kernel, its launches on the main
-    paths, its worst error, and its time, plain time, bound and library
-    time at the main-path shape."""
+    paths (summed, and by path for kernels A, C and D), its worst error,
+    and its time, plain time, bound and library time at the main-path
+    shape."""
     fl = kernel_rows["flash"][0]       # the main path's 2048-bucket shape
     de = kernel_rows["decode"][0]
     bw = bwd_rows[0]                   # causal T=4096, the train main path
@@ -1182,7 +1601,14 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
     ve = next(r for r in opt_rows["chunk"]       # verify, 8 rows
               if (r["form"], r["dtype"]) == ("verify", "bf16"))
     tl = train_row["launches"]
+    rl = recipe_row["launches"]
     ol = {k: r["launches"] for k, r in options_rows.items()}
+
+    def by_path(symbol, serve=0):
+        paths = {"serve": serve, "train_main": tl[symbol],
+                 "recipe_data_path": rl[symbol]}
+        return {"launches": sum(paths.values()),
+                "launches_by_path": {k: v for k, v in paths.items() if v}}
 
     def timing(r, ms="ms", b=None):
         b = b or r
@@ -1204,8 +1630,7 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
          "source": "metamorph_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "metamorph_tpu/ops/flash_attention.py:228, "
                      "metamorph_tpu/ops/flash_attention.py:287",
-         "launches": main_row["launches"]["flash_fwd"]
-                     + tl["mm_flash_fwd_bf16"],
+         **by_path("mm_flash_fwd_bf16", main_row["launches"]["flash_fwd"]),
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
          **timing(fl),
          "forms": {f"causal_T{r['T']}": timing(r)
@@ -1220,14 +1645,14 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
          "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "metamorph_tpu/ops/flash_attention.py:499, "
                      "metamorph_tpu/ops/flash_attention.py:698",
-         "launches": tl["mm_flash_bwd_dq_bf16"],
+         **by_path("mm_flash_bwd_dq_bf16"),
          "max_abs_err": max(r["max_abs_err"]["dq"] for r in bwd_rows),
          **timing(bw, "ms_dq", bw["bound_dq"])},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "metamorph_tpu/ops/flash_attention.py:529, "
                      "metamorph_tpu/ops/flash_attention.py:724",
-         "launches": tl["mm_flash_bwd_dkv_bf16"],
+         **by_path("mm_flash_bwd_dkv_bf16"),
          "max_abs_err": max(max(r["max_abs_err"]["dk"],
                                 r["max_abs_err"]["dv"]) for r in bwd_rows),
          **timing(bw, "ms_dkv", bw["bound_dkv"]),
@@ -1342,9 +1767,11 @@ def main() -> int:
     train_row = phase_train_main(torch, dev)
     free_memory(torch)
     phase_trainer(torch, dev)
+    recipe_row = phase_recipe_main(torch, dev, train_row)
+    phase_recipe_small(torch, dev)
 
     summary = kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
-                             options_rows, train_row)
+                             options_rows, train_row, recipe_row)
     log(smi)
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,11 @@ two packages."""
 
 IGNORE_INDEX = -100
 IMAGE_TOKEN_INDEX = -200
+DEFAULT_IMAGE_TOKEN = "<image>"
+DEFAULT_IMAGE_PATCH_TOKEN = "<im_patch>"
+DEFAULT_IM_START_TOKEN = "<image_start>"
+DEFAULT_IM_END_TOKEN = "<image_end>"
+IMAGE_PLACEHOLDER = "<image-placeholder>"
 
 # LLaMA-3 vocabulary is 128256 tokens; the two added vision tokens take the
 # next slots. The decode state machine keys on these ids.

@@ -10,8 +10,9 @@ numpy arrays, so tests compare parameters leaf by leaf.
 
 `init_params` makes random weights on the device from a seed, at the scales
 the JAX initializers use (normal * fan_in**-0.5 for the LLaMA and SigLIP
-dense weights, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for the projector and
-vision head, ones for norm scales, zeros for SigLIP biases). It follows the
+dense weights and the anyres `image_newline`, U(-1/sqrt(fan_in),
+1/sqrt(fan_in)) for the projector, the vision head and the `mlpmixer`
+mixers, ones for norm scales, zeros for SigLIP biases). It follows the
 scales, not JAX's random bits.
 """
 
@@ -103,6 +104,16 @@ def from_jax_params(tree: Mapping[str, Any], cfg: MetaMorphConfig,
         for i, dense in enumerate(stack.layers):
             put(dense.kernel, sub[f"w{i}"]["kernel"])
             put(dense.bias, sub[f"w{i}"]["bias"])
+    for name in ("siglip_mixer", "image_newline"):
+        if (getattr(model, name) is None) != (name not in tree):
+            raise ValueError(f"the config and the tree disagree on {name!r}")
+    if model.siglip_mixer is not None:
+        for name in ("token_mixer", "channel_mixer"):
+            dense = getattr(model.siglip_mixer, name)
+            put(dense.kernel, tree["siglip_mixer"][name]["kernel"])
+            put(dense.bias, tree["siglip_mixer"][name]["bias"])
+    if model.image_newline is not None:
+        put(model.image_newline, tree["image_newline"])
     return model
 
 
@@ -155,9 +166,18 @@ def to_jax_params(model: MetaMorph) -> dict:
         return {f"w{i}": {"kernel": a(d.kernel), "bias": a(d.bias)}
                 for i, d in enumerate(stack_mod.layers)}
 
-    return {"llama": llama, "siglip": siglip,
+    tree = {"llama": llama, "siglip": siglip,
             "projector": dense_stack(model.projector),
             "vision_head": dense_stack(model.vision_head)}
+    if model.siglip_mixer is not None:
+        tree["siglip_mixer"] = {
+            name: {"kernel": a(d.kernel), "bias": a(d.bias)}
+            for name, d in (("token_mixer", model.siglip_mixer.token_mixer),
+                            ("channel_mixer",
+                             model.siglip_mixer.channel_mixer))}
+    if model.image_newline is not None:
+        tree["image_newline"] = a(model.image_newline)
+    return tree
 
 
 @torch.no_grad()
@@ -205,9 +225,14 @@ def init_params(cfg: MetaMorphConfig, seed: int = 0, device="cuda",
         layer.ln1_scale.fill_(1.0)
         layer.ln2_scale.fill_(1.0)
 
-    for stack in (model.projector, model.vision_head):
-        for dense in stack.layers:
-            bound = dense.kernel.shape[0] ** -0.5
-            dense.kernel.uniform_(-bound, bound, generator=gen)
-            dense.bias.uniform_(-bound, bound, generator=gen)
+    mixers = ([model.siglip_mixer.token_mixer, model.siglip_mixer.channel_mixer]
+              if model.siglip_mixer is not None else [])
+    for dense in [*model.projector.layers, *model.vision_head.layers,
+                  *mixers]:
+        bound = dense.kernel.shape[0] ** -0.5
+        dense.kernel.uniform_(-bound, bound, generator=gen)
+        dense.bias.uniform_(-bound, bound, generator=gen)
+    if model.image_newline is not None:
+        # randn(D) / sqrt(D), as the reference initialises it
+        normal(model.image_newline, cfg.llama.hidden_size)
     return model

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from metamorph_tpu_torch.config import MetaMorphConfig
 from metamorph_tpu_torch.constants import IGNORE_INDEX
 from metamorph_tpu_torch.models import llama as llama_lib
+from metamorph_tpu_torch.models.llama import _param
 from metamorph_tpu_torch.models import projector as proj_lib
 from metamorph_tpu_torch.models import siglip as siglip_lib
 
@@ -51,9 +52,12 @@ def _head_acts(cfg: MetaMorphConfig):
 
 
 class MetaMorph(nn.Module):
-    """LLaMA decoder, SigLIP tower, mm projector and vision head. Weights
-    are uninitialized (`torch.empty`); fill them with
-    `convert.from_jax_params` or `convert.init_params`."""
+    """LLaMA decoder, SigLIP tower, mm projector and vision head, plus the
+    `mlpmixer` reduction's mixers (`siglip_mixer`) and the anyres
+    `spatial_unpad` merge's learned newline row (`image_newline`, [D]) when
+    the config uses them, as the JAX parameter tree has them. Weights are
+    uninitialized (`torch.empty`); fill them with `convert.from_jax_params`
+    or `convert.init_params`."""
 
     def __init__(self, cfg: MetaMorphConfig, dtype=torch.bfloat16,
                  device=None):
@@ -65,6 +69,13 @@ class MetaMorph(nn.Module):
                                              device)
         self.vision_head = proj_lib.DenseStack(_head_dims_acts(cfg)[0], dtype,
                                                device)
+        self.siglip_mixer = (
+            siglip_lib.SiglipMixer(cfg.siglip, cfg.mm.num_image_tokens, dtype,
+                                   device)
+            if cfg.mm.image_token_reduction == "mlpmixer" else None)
+        self.image_newline = (
+            _param(cfg.llama.hidden_size, dtype=dtype, device=device)
+            if "unpad" in cfg.mm.mm_patch_merge_type else None)
 
 
 def encode_images(model: MetaMorph, cfg: MetaMorphConfig,
@@ -72,7 +83,7 @@ def encode_images(model: MetaMorph, cfg: MetaMorphConfig,
     """pixels [N,H,W,3] -> (projected [N,K,D_llm] with grad to the
     projector, targets [N,K,D_vis] detached)."""
     feats = siglip_lib.vision_tower_forward(model.siglip, cfg.siglip, cfg.mm,
-                                            pixels)
+                                            pixels, model.siglip_mixer)
     projected = proj_lib.apply_stack(model.projector, _proj_acts(cfg), feats)
     return projected, feats.detach()
 
@@ -93,11 +104,25 @@ def image_token_table(model: MetaMorph, cfg: MetaMorphConfig,
                       batch: Dict[str, torch.Tensor],
                       projected: torch.Tensor) -> torch.Tensor:
     """Flat [A, D] image-token table the packer's img_gather_idx indexes
-    into (uniform path: slot-major reshape of [N, K, D]). The anyres path
-    (`view_map` in the batch) is not ported yet."""
+    into. Uniform path: slot-major reshape of [N, K, D]. Anyres path (the
+    batch carries `view_map`): one gather over the flattened per-view
+    tokens, with the learned `image_newline` at NEWLINE_IDX (-1) entries
+    (zeros when the model has none) and zeros at PAD_IDX (-2), the
+    static-shape form of the reference's spatial merge."""
     if "view_map" in batch:
-        raise NotImplementedError("anyres image_token_table is not ported to "
-                                  "the PyTorch package yet")
+        D = projected.shape[-1]
+        if projected.shape[1] != cfg.siglip.num_patches:
+            raise ValueError("anyres merge needs the raw patch grid; set "
+                             "mm.image_token_reduction='none'")
+        flat = projected.reshape(-1, D)
+        vm = batch["view_map"].long()
+        safe = flat[vm.clamp_min(0)]
+        newline = model.image_newline
+        if newline is None:
+            newline = projected.new_zeros((D,))
+        return torch.where((vm == -1)[:, None], newline.to(projected.dtype),
+                           torch.where((vm >= 0)[:, None], safe,
+                                       safe.new_zeros(())))
     N, K, D = projected.shape
     return projected.reshape(N * K, D)
 
@@ -167,8 +192,15 @@ def metamorph_forward(model: MetaMorph, cfg: MetaMorphConfig,
     # plan, the vision head run on every position and weighted by the
     # answer-image mask
     N, K, Dv = targets.shape
-    tgt_flat = torch.cat([targets.reshape(N * K, Dv).float(),
-                          targets.new_zeros((1, Dv), dtype=torch.float32)])
+    if "view_map" in batch:
+        # anyres images are prompt images only (the reference's anyres
+        # branch makes no AR targets): the mask is all zero and the target
+        # table inert
+        tgt_flat = targets.new_zeros((batch["view_map"].shape[0] + 1, Dv),
+                                     dtype=torch.float32)
+    else:
+        tgt_flat = torch.cat([targets.reshape(N * K, Dv).float(),
+                              targets.new_zeros((1, Dv), dtype=torch.float32)])
     tgt = tgt_flat[batch["img_gather_idx"].long()]                # [B,T,Dv]
     # teacher forcing: hidden at t-1 predicts image token t
     h_prev = torch.cat([torch.zeros_like(hidden[:, :1]), hidden[:, :-1]],

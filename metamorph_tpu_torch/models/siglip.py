@@ -9,12 +9,15 @@ materialized path, as in the JAX package (729 tokens per image).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from metamorph_tpu_torch.config import MultimodalConfig, SiglipConfig
 from metamorph_tpu_torch.models.llama import _param
+from metamorph_tpu_torch.models.projector import Dense
 from metamorph_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -46,6 +49,19 @@ class Siglip(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_ln_scale = _param(D, **kw)
         self.final_ln_bias = _param(D, **kw)
+
+
+class SiglipMixer(nn.Module):
+    """The `mlpmixer` token reduction's weights: a token mixer
+    [num_patches -> num_image_tokens] and a channel mixer [D -> D]."""
+
+    def __init__(self, cfg: SiglipConfig, num_image_tokens: int,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__()
+        D = cfg.hidden_size
+        self.token_mixer = Dense(cfg.num_patches, num_image_tokens, dtype,
+                                 device)
+        self.channel_mixer = Dense(D, D, dtype, device)
 
 
 def layer_norm(x, scale, bias, eps):
@@ -101,33 +117,56 @@ def siglip_encode(model: Siglip, cfg: SiglipConfig, pixels: torch.Tensor
     return x
 
 
-def reduce_tokens(features: torch.Tensor, mm: MultimodalConfig
-                  ) -> torch.Tensor:
-    """num_patches -> num_image_tokens. The `interpolation` mode (bilinear,
-    align_corners=False, no antialias: the same sampling as the JAX
-    package's `jax.image.resize(..., "linear", antialias=False)`) and
-    `none` are ported; `mlpmixer` and `concat_interpolation` are not."""
+def _resize_grid(features: torch.Tensor, side: int, out: int
+                 ) -> torch.Tensor:
+    """[N, side*side, D] -> [N, out, out, D] fp32: bilinear,
+    align_corners=False, no antialias (the sampling of the JAX package's
+    `jax.image.resize(..., "linear", antialias=False)`)."""
+    N, _, D = features.shape
+    grid = features.float().reshape(N, side, side, D).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(out, out), mode="bilinear",
+                         align_corners=False, antialias=False)
+    return grid.permute(0, 2, 3, 1)
+
+
+def reduce_tokens(features: torch.Tensor, mm: MultimodalConfig,
+                  mixer: Optional[SiglipMixer] = None) -> torch.Tensor:
+    """num_patches -> num_image_tokens, by `mm.image_token_reduction`:
+      * `interpolation`: bilinear resize of the patch grid;
+      * `mlpmixer`: the token mixer across patches, then the channel mixer
+        (the weights of `mixer`);
+      * `concat_interpolation`: resize to twice the target side, then
+        concatenate each 2x2 block's features: [N, K, 4*D];
+      * `none`: the raw patch grid."""
     N, T, D = features.shape
     if T == mm.num_image_tokens or mm.image_token_reduction == "none":
         return features
-    if mm.image_token_reduction != "interpolation":
-        raise NotImplementedError(
-            f"image_token_reduction={mm.image_token_reduction!r} is not "
-            f"ported to the PyTorch package yet")
     side = int(round(T ** 0.5))
+    mode = mm.image_token_reduction
+    if mode == "mlpmixer":
+        tm, cm = mixer.token_mixer, mixer.channel_mixer
+        x = (torch.einsum("ntd,tk->nkd", features, tm.kernel)
+             + tm.bias[None, :, None])
+        return x @ cm.kernel + cm.bias
+    if mode not in ("interpolation", "concat_interpolation"):
+        raise NotImplementedError(mode)
     tgt = int(round(mm.num_image_tokens ** 0.5))
-    if tgt * tgt != mm.num_image_tokens:
-        raise ValueError(
-            f"num_image_tokens must be a perfect square for interpolation "
-            f"reduction, got {mm.num_image_tokens}")
-    grid = features.float().reshape(N, side, side, D).permute(0, 3, 1, 2)
-    out = F.interpolate(grid, size=(tgt, tgt), mode="bilinear",
-                        align_corners=False, antialias=False)
-    return out.permute(0, 2, 3, 1).reshape(N, tgt * tgt, D).to(features.dtype)
+    if mode == "interpolation":
+        if tgt * tgt != mm.num_image_tokens:
+            raise ValueError(
+                f"num_image_tokens must be a perfect square for "
+                f"interpolation reduction, got {mm.num_image_tokens}")
+        out = _resize_grid(features, side, tgt)
+        return out.reshape(N, tgt * tgt, D).to(features.dtype)
+    grid = _resize_grid(features, side, 2 * tgt)
+    # 2x2 spatial concat -> [N, tgt, tgt, 4D]
+    grid = grid.reshape(N, tgt, 2, tgt, 2, D).permute(0, 1, 3, 2, 4, 5)
+    return grid.reshape(N, tgt * tgt, 4 * D).to(features.dtype)
 
 
 def vision_tower_forward(model: Siglip, cfg: SiglipConfig,
-                         mm: MultimodalConfig, pixels: torch.Tensor
+                         mm: MultimodalConfig, pixels: torch.Tensor,
+                         mixer: Optional[SiglipMixer] = None
                          ) -> torch.Tensor:
     """ViT encode -> token reduction -> optional L2-normalize. Returns
     [N, num_image_tokens, D] in SigLIP feature space. With
@@ -137,7 +176,7 @@ def vision_tower_forward(model: Siglip, cfg: SiglipConfig,
     feats = siglip_encode(model, cfg, pixels)
     if mm.freeze_vision:
         feats = feats.detach()
-    feats = reduce_tokens(feats, mm)
+    feats = reduce_tokens(feats, mm, mixer)
     if mm.normalize_vision:
         f32 = feats.float()
         feats = (f32 / f32.norm(dim=-1, keepdim=True).clamp_min(1e-12)

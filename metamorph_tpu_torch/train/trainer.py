@@ -6,6 +6,12 @@ accumulation, per-step metrics, checkpoint saves and auto-resume. The port
 runs eagerly, so a batch with another per-image token count K (multi-res
 buckets) just runs with the matching config variant; nothing recompiles.
 
+Besides the step's metrics, each logged step records two host-clock times:
+`data_wait_s`, how long the step waited on the prefetch queue for its
+batches (0 when the background loader kept ahead), and `step_s`, from the
+first wait to the metrics read back from the device (which waits for the
+step to finish).
+
 Not ported yet, and refused with NotImplementedError: HF weight import and
 the stage-1 adapter merge (loader slice), LoRA, the optimizer offload,
 sequence parallelism and ring attention, multi-host and any mesh of more
@@ -15,6 +21,7 @@ than one device (multi-GPU slice), W&B logging.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional
 
@@ -35,6 +42,8 @@ from metamorph_tpu_torch.utils.logging import MetricsLogger, rank0_print
 @dataclass
 class TrainerArgs:
     output_dir: str = "./out"
+    # a checkpoint every save_steps steps and at the end; 0 writes none (the
+    # 8B stage-2 state is ~49 GB, more than some hosts' disks take)
     save_steps: int = 500
     save_total_limit: int = 1
     logging_steps: int = 1
@@ -138,12 +147,17 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
 
     step = start_step
     last_metrics = {}
+    saving = args.save_steps > 0
     try:
         accum = cfg.train.grad_accum_steps
         while step < cfg.train.total_steps:
             micro, micro_K = [], []
+            t_start = time.perf_counter()
+            data_wait = 0.0
             for _ in range(accum):
+                t = time.perf_counter()
                 (packed, pixels), ds = next(it)
+                data_wait += time.perf_counter() - t
                 consumed_data_state[0] = ds
                 if isinstance(packed, PackedBatch):
                     b = batch_to_arrays(packed)
@@ -176,17 +190,23 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
             step += 1
             if step % args.logging_steps == 0:
                 m = {k: float(v) for k, v in m.items()}
+                m.update(data_wait_s=data_wait,
+                         step_s=time.perf_counter() - t_start)
                 last_metrics = metrics_log.log(step, m, tokens_per_step, 1)
                 rank0_print(f"step {step}: loss={m['loss']:.4f} "
                             f"(lang={m['loss_language']:.4f} "
                             f"img_ar={m['loss_image_ar']:.4f})")
-            if step % args.save_steps == 0 or preempt.should_save():
+            if preempt.should_save():
+                if saving:
+                    save(step)
+                rank0_print("preemption: saved and exiting" if saving
+                            else "preemption: exiting (saves are off)")
+                break
+            if saving and step % args.save_steps == 0:
                 save(step)
-                if preempt.should_save():
-                    rank0_print("preemption save complete; exiting")
-                    break
     finally:
         metrics_log.close()
 
-    save(step)
+    if saving:
+        save(step)
     return {"state": state, "step": step, "metrics": last_metrics}

@@ -655,3 +655,135 @@ def test_sm90_descriptors_match_matmul(dev, N, mode):
     torch.cuda.synchronize()
     ref = a.float() @ (b.float() if mode & 1 else b.float().t())
     assert (c - ref).abs().max().item() <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the host-data slice on the card's machine
+# ---------------------------------------------------------------------------
+
+def test_native_packer_builds_and_matches_python(dev):
+    """The packer compiles on this machine into metamorph_tpu_torch/build/
+    and gives the Python packer's batches, field for field."""
+    import dataclasses
+    import random
+
+    import numpy as np
+
+    from metamorph_tpu_torch.multimodal import native
+    from metamorph_tpu_torch.multimodal.packing import (PackedBatch,
+                                                        pack_sequences)
+
+    assert native.native_available(), native.NATIVE.error
+    assert native.library_path().parent == native.BUILD_DIR
+    assert native.library_path().exists()
+    rng = random.Random(0)
+    for _ in range(20):
+        ids, labs, n_img = [], [], 0
+        for _ in range(rng.randint(1, 4)):
+            row = [128000] + [rng.randint(10, 999) for _ in range(5)]
+            for _ in range(rng.randint(0, 2)):
+                row += [128256, -200, 128257] if rng.random() < 0.5 else [-200]
+                n_img += 1
+            n_img += row.count(-200) == 0
+            ids.append(row)
+            labs.append([t if t != -200 else -100 for t in row])
+        args = (ids, labs, 3, rng.choice([12, 40]), n_img + 1)
+        a = native.pack_sequences_native(*args)
+        b = pack_sequences(*args)
+        for f in dataclasses.fields(PackedBatch):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert (x is None and y is None) or np.array_equal(x, y), f.name
+
+
+def test_fused_resize_normalize_on_card_matches_cpu(dev):
+    """The two interpolation products and the normalization on the card
+    against the same function on the CPU: 1e-5 absolute, fp32 both ways
+    (TF32 off) with only the order of the sums differing."""
+    from metamorph_tpu_torch.ops.preprocess import fused_resize_normalize
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator().manual_seed(0)
+        frames = torch.randint(0, 256, (3, 250, 370, 3), generator=gen,
+                               dtype=torch.uint8)
+        cpu = fused_resize_normalize(frames, 384)
+        gpu = fused_resize_normalize(frames.to(dev), 384)
+        assert gpu.device.type == "cuda" and gpu.dtype == torch.float32
+        assert (gpu.cpu() - cpu).abs().max().item() <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_anyres_train_step_on_card_matches_cpu(dev, tmp_path):
+    """One anyres train_step (view_map gather with the learned newline,
+    spatial_unpad) through the port's dataset and collator: bf16 with the
+    kernels on the card against fp32 with the plain versions on the CPU,
+    on the same weights; losses within 2e-2 relative."""
+    import copy
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    from chip_smoke import word_tokenize
+    from metamorph_tpu_torch.config import (LlamaConfig, MetaMorphConfig,
+                                            MultimodalConfig, SiglipConfig,
+                                            TrainConfig)
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.train import train_step as TS
+    from metamorph_tpu_torch.train.data import (DataConfig, DataIterator,
+                                                LazySupervisedDataset,
+                                                PackedCollator)
+    from metamorph_tpu_torch.train.optimizer import make_optimizer
+
+    pins = ((28, 56), (56, 28), (56, 56))
+    cfg = MetaMorphConfig(
+        llama=LlamaConfig(hidden_size=256, intermediate_size=512,
+                          num_layers=2, num_heads=2, num_kv_heads=1,
+                          head_dim=128),
+        siglip=SiglipConfig.tiny(),
+        mm=MultimodalConfig(num_image_tokens=4, image_token_reduction="none",
+                            image_aspect_ratio="anyres",
+                            mm_patch_merge_type="spatial_unpad",
+                            image_grid_pinpoints=pins),
+        train=TrainConfig(batch_size=2, max_seq_len=128,
+                          max_images_per_batch=2, learning_rate=1e-3))
+    rows = []
+    for i, hw in enumerate([(30, 60), (45, 20)]):
+        path = tmp_path / f"{i}.png"
+        Image.fromarray(np.random.default_rng(i).integers(
+            0, 256, (*hw, 3)).astype(np.uint8)).save(path)
+        rows.append({"id": str(i), "image": str(path), "conversations": [
+            {"from": "human", "value": f"<image>\nwhat is {i}"},
+            {"from": "gpt", "value": f"it is thing {i}"}]})
+    data = tmp_path / "d.jsonl"
+    data.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    ds = LazySupervisedDataset(
+        str(data), word_tokenize,
+        DataConfig(image_aspect_ratio="anyres", image_size=28,
+                   grid_pinpoints=pins))
+    col = PackedCollator(num_image_tokens=4, max_seq_len=128,
+                         num_image_slots=2, image_size=28,
+                         image_aspect_ratio="anyres", grid_pinpoints=pins)
+    packed, pixels = next(iter(DataIterator(ds, col, batch_size=2)))
+    arrays = batch_to_arrays(packed)
+    assert "view_map" in arrays and (arrays["view_map"] == -1).any()
+
+    cpu = init_params(cfg, seed=0, device="cpu", dtype=torch.float32)
+    gpu = copy.deepcopy(cpu).to(device=dev, dtype=torch.bfloat16)
+    losses = {}
+    for name, model, d in (("cpu", cpu, torch.device("cpu")),
+                           ("gpu", gpu, dev)):
+        state = TS.init_train_state(model, cfg)
+        tx = make_optimizer(cfg.train, model)
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
+                 for k, v in arrays.items()}
+        _, m = TS.train_step(state, batch, torch.from_numpy(pixels).to(d),
+                             cfg, tx)
+        losses[name] = float(m["loss"])
+        assert float(m["n_image_ar_tokens"]) == 0.0
+        assert float(m["n_text_tokens"]) > 1
+    assert np.isfinite(losses["gpu"])
+    assert abs(losses["gpu"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])
