@@ -21,6 +21,10 @@ Phases (any failure raises and the script exits nonzero):
                ragged offsets, S=4108) and its fill form (C=256), bf16 and
                int8, with stale entries past each chunk, against their plain
                versions;
+  10b. drafter-shape kernels — kernel B (bf16, 8 full rows) and kernel
+               E's verify form (8 rows, C=4) and fill form (8 rows, C=8,
+               the catch-up at spec_k 8) at the 1B drafter's attention
+               shape (Dh=64, KV=8, G=4, S=4096), as 3c checks them;
      Every kernel row carries its bound (the larger of bytes over 3.35 TB/s
      and FLOPs over 989 TFLOP/s, from this run's shapes), the FLOP/s and
      bytes/s it reached and the bound's share of its time, and, where one
@@ -107,10 +111,34 @@ Phases (any failure raises and the script exits nonzero):
                `pretrain_mm_mlp_adapter`), 2 steps at T=4096, no save: the
                built model bitwise the files' tensors, finite losses, the
                step time beside 5b's.
-The phases run in the order 1-4, 5, 5d, 9a, 5b, 9b-9e, 5c, 8.
+  10. decode entry points and front ends — on phase 5's model (after 5d,
+               before 9a): a LLaMA-3.2-1B-shaped drafter (random bf16, seed
+               1); 10a `generate`, `greedy_decode` (stop id, int8 cache),
+               `greedy_decode_spec` (spec_k 4: kernel E's verify form; 8:
+               its fill form) and `greedy_decode_spec_draft_model` on a
+               300-token text prompt, then the demo's work function on an
+               image (greedy, spec_k 8, the drafter) and that image's
+               fused prompt through `greedy_decode` (stop id, int8 cache)
+               and `greedy_decode_spec` (spec_k 4), then
+               `batched_greedy_decode` and `batched_greedy_decode_spec` on 8
+               left-padded prompts of 40-1,500 tokens; each run twice with
+               identical ids, the same first token across a prompt's runs,
+               tokens/s, accepted drafts per chunk step, and the device's
+               busy share over one greedy run (profiler); 10c
+               `ServeEngine(spec_k=4, draft=...)` on phase 5's requests with
+               the 1B drafter and with the main LLaMA as its own drafter
+               (gate: >= 0.5 of the text requests' drafts accepted); 10d
+               the serve CLI's work function over a requests JSONL (text,
+               a long prompt through chunked fill, an image, per-row
+               budgets; `word_tokenize`); 10e `MetaMorphHTTPServer` on
+               127.0.0.1:0 over an 8-slot engine, 8 concurrent requests
+               (half streaming), time to first chunk and to completion.
+               Kernels A, B (bf16, int8) and E (both forms) must launch.
+The phases run in the order 1-3c, 10b, 4, 5, 5d, 10, 9a, 5b, 9b-9e, 5c, 8.
 
 The last two lines of stdout are the kernel summary JSON and
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a
+{"ok": true, "device": {...}}; the whole script's wall time is printed
+before them. Without a CUDA device, or outside a
 repository checkout, it exits nonzero and prints no result.
 """
 
@@ -545,6 +573,29 @@ def phase_bwd_kernels(torch, dev):
     return rows
 
 
+def check_attn_row(torch, name, out, again, ref, row) -> None:
+    """Kernel B's and E's check against the plain version: DECODE_TOL of
+    max|ref| over each query row's head vector, finite, equal bits on a
+    second launch, and the split kernels' arrival counters back at zero."""
+    from metamorph_tpu_torch.ops import decode_attention as da
+
+    row.update(rates(row, row["ms"]))
+    diff = (out.float() - ref).abs()
+    # each (query, head) row against its own magnitude; the floor only
+    # guards a row with no visible key, whose output is 0
+    rel = (diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-3)).max()
+    row.update(max_abs_err=diff.max().item(), max_rel_err=rel.item(),
+               tol_rel=DECODE_TOL,
+               bitwise_repeat=bool(torch.equal(out, again)),
+               counters_zero=all(bool((ctr == 0).all())
+                                 for _, ctr in da._SCRATCH.values()))
+    log(name, json.dumps(row))
+    if not (rel.item() <= DECODE_TOL and torch.isfinite(out).all()
+            and row["bitwise_repeat"] and row["counters_zero"]):
+        raise AssertionError(f"{name} disagrees with plain or does not "
+                             f"repeat: {row}")
+
+
 def phase_option_kernels(torch, dev, S: int = 4096):
     """Kernel B's int8 branch and kernel E (both forms, both cache types)
     at the serving options' main-path shapes (cache length S), against
@@ -567,24 +618,6 @@ def phase_option_kernels(torch, dev, S: int = 4096):
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
-
-    def check(name, out, again, ref, row):
-        row.update(rates(row, row["ms"]))
-        diff = (out.float() - ref).abs()
-        # each (query, head) row against its own magnitude; the floor only
-        # guards a row with no visible key, whose output is 0
-        rel = (diff.amax(-1) / ref.abs().amax(-1).clamp_min(1e-3)).max()
-        # the split kernels' arrival counters are back at zero
-        row.update(max_abs_err=diff.max().item(), max_rel_err=rel.item(),
-                   tol_rel=DECODE_TOL,
-                   bitwise_repeat=bool(torch.equal(out, again)),
-                   counters_zero=all(bool((ctr == 0).all())
-                                     for _, ctr in da._SCRATCH.values()))
-        log(name, json.dumps(row))
-        if not (rel.item() <= DECODE_TOL and torch.isfinite(out).all()
-                and row["bitwise_repeat"] and row["counters_zero"]):
-            raise AssertionError(f"{name} disagrees with plain or does not "
-                                 f"repeat: {row}")
 
     # kernel B int8: 8 full rows of a 4096-token cache (every key read),
     # then ragged windows with starts
@@ -622,7 +655,7 @@ def phase_option_kernels(torch, dev, S: int = 4096):
                    library_ms=None,
                    **bound(window * KV * (2 * Dh + 8) + 4 * B * H * Dh,
                            4 * H * Dh * window))
-        check("kernel B decode_attn_int8", o, again, ref, row)
+        check_attn_row(torch, "kernel B decode_attn_int8", o, again, ref, row)
         rows["decode_int8"].append(row)
     del ck, cv, ks, vs
 
@@ -694,7 +727,7 @@ def phase_option_kernels(torch, dev, S: int = 4096):
                                                + (8 if quant else 0))
                                + 4 * NB * C * H * Dh,
                                4 * H * Dh * pairs))
-            check("kernel E chunk_attn", o, again, ref, row)
+            check_attn_row(torch, "kernel E chunk_attn", o, again, ref, row)
             rows["chunk"].append(row)
             del kc, vc, ksc, vsc, o, again, ref
         del k, v
@@ -1037,8 +1070,8 @@ def phase_serve_options(torch, dev, model, cfg, reqs, plain_run):
         done = {c.uid: c for c in eng.run()}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {k.symbol: dict(k.sites, total=k.launches)
-                    for k in kernels}
+        launches = {k.symbol: dict(k.sites, total=k.launches,
+                                   forms=dict(k.forms)) for k in kernels}
         key = "int8" if kv_int8 else "bf16"
         if sorted(done) != sorted(budgets):
             raise AssertionError(f"{key}: served {sorted(done)}")
@@ -1087,6 +1120,585 @@ def phase_serve_options(torch, dev, model, cfg, reqs, plain_run):
         del eng, done
         free_memory(torch)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the decode entry points and the front ends
+# ---------------------------------------------------------------------------
+
+DECODE_NEW = 48           # tokens per single-request run
+SELF_DRAFT_MIN_ACCEPT = 0.5   # 10c: share of the drafts proposed to text
+                              # requests that are accepted, with the main
+                              # LLaMA as its own drafter (predicted >= 0.9;
+                              # a broken catch-up or accept chain accepts
+                              # about none). The image request is reported
+                              # apart: the drafter sees its placeholder ids,
+                              # not the image, so its drafts miss.
+
+
+def drafter_1b_config():
+    """The drafter's shape: the public meta-llama/Llama-3.2-1B config.json
+    (hidden 2048, 16 layers, 32 heads, 8 KV heads, head dim 64,
+    intermediate 8192, vocab 128256, tied embeddings, llama3 rope with
+    factor 32)."""
+    from metamorph_tpu_torch.config import LlamaConfig
+
+    return LlamaConfig(vocab_size=128256, hidden_size=2048,
+                       intermediate_size=8192, num_layers=16, num_heads=32,
+                       num_kv_heads=8, head_dim=64, rope_theta=500000.0,
+                       rms_norm_eps=1e-5, max_position_embeddings=131072,
+                       rope_scaling=True, rope_scaling_factor=32.0,
+                       rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,
+                       rope_original_max_position=8192,
+                       tie_word_embeddings=True)
+
+
+def phase_drafter_kernels(torch, dev, S: int = 4096):
+    """10b: kernel B (bf16) and kernel E's two forms at the drafter's
+    attention shape (Dh=64, KV=8, G=4) over a 4096-token cache, against
+    their plain versions, with times, bounds and SDPA's time, as phase 3c
+    does at Dh=128."""
+    import torch.nn.functional as F
+
+    from metamorph_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4242)
+    H, KV, Dh, L, B = 32, 8, 64, 2, 8
+    rows = {"decode": [], "verify": [], "fill": []}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    # kernel B: 8 full rows (every key read), the serving slots' batch
+    ck, cv = randn(L, B, KV, S, Dh), randn(L, B, KV, S, Dh)
+    q = randn(B, H, Dh)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    layer = 1
+    o, again = (da.decode_attention(q, ck, cv, lengths, layer=layer)
+                for _ in range(2))
+    ref = da.decode_attention_plain(q.float(), ck[layer].float(),
+                                    cv[layer].float(), lengths)
+    flip = [layer]
+
+    def kern():   # alternate layers: each launch finds its rows cold
+        flip[0] = 0 if flip[0] == layer else layer
+        da.decode_attention(q, ck, cv, lengths, layer=flip[0])
+
+    window = B * S
+    row = dict(B=B, S=S, Dh=Dh, KV=KV, G=H // KV, ms_method=MS_METHOD,
+               **three_ways(kern),
+               plain_ms=cuda_ms(lambda: da.decode_attention_plain(
+                   q, ck[layer], cv[layer], lengths)),
+               **three_ways(lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], ck[layer], cv[layer], enable_gqa=True),
+                   "library_"),
+               **bound(window * KV * Dh * 2 * 2 + 2 * B * H * Dh * 2,
+                       4 * H * Dh * window))
+    check_attn_row(torch, "kernel B decode_attn (Dh=64)", o, again, ref,
+                   row)
+    rows["decode"].append(row)
+    del ck, cv
+
+    # kernel E: every row's chunk at its own offset, stale entries past
+    # each chunk (S = 4096 + spec_k + 8, as the engine's); spec_k 4 gives
+    # the verify form (G * C = 16 rows), spec_k 8 the fill form (32 rows),
+    # which is the drafter's catch-up at --spec-k 8
+    offs = [S - 4, 17, S // 4, S - 96, S * 5 // 8, 0, S * 13 // 16, S // 7]
+    NB = len(offs)
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    r_t = torch.arange(NB, dtype=torch.int32, device=dev)
+    for form, C in (("verify", 4), ("fill", 8)):
+        Sv = S + C + 8
+        k, v = randn(L, B, KV, Sv, Dh), randn(L, B, KV, Sv, Dh)
+        for r, off in enumerate(offs):
+            k[:, r, :, off + C:] = 30.0
+            v[:, r, :, off + C:] = -50.0
+        q = randn(NB, C, H, Dh)
+        call = lambda l: da.chunk_attention_batched(q, k, v, offs_t,
+                                                    layer=l, rows=r_t)
+        o, again = call(layer), call(layer)
+        plain = lambda: da.chunk_attention_plain(q.float(), k[layer].float(),
+                                                 v[layer].float(), offs_t)
+        ref = plain()
+        flip = [layer]
+
+        def kern_e():
+            flip[0] = 0 if flip[0] == layer else layer
+            call(flip[0])
+
+        last = offs_t.long()[:, None] + torch.arange(C, device=dev)
+        mask = (torch.arange(Sv, device=dev)[None, None]
+                <= last[..., None])[:, None]             # [NB, 1, C, Sv]
+        pairs = int((last + 1).sum())
+        kv_keys = int((offs_t.long() + C).sum())
+        row = dict(form=form, NB=NB, C=C, S=Sv, Dh=Dh, KV=KV, G=H // KV,
+                   offs=offs, ms_method=MS_METHOD, **three_ways(kern_e),
+                   plain_ms=cuda_ms(plain, calls=5, reps=3),
+                   **three_ways(lambda: F.scaled_dot_product_attention(
+                       q.transpose(1, 2), k[layer], v[layer],
+                       attn_mask=mask, enable_gqa=True), "library_"),
+                   **bound(kv_keys * KV * 2 * Dh * 2 + 4 * NB * C * H * Dh,
+                           4 * H * Dh * pairs))
+        check_attn_row(torch, f"kernel E chunk_attn {form} (Dh=64)", o,
+                       again, ref, row)
+        rows[form].append(row)
+        del k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _phase10_kernels():
+    from metamorph_tpu_torch.ops import decode_attention as da
+    from metamorph_tpu_torch.ops import flash_attention as fa
+
+    return (fa.FLASH_FWD, da.DECODE_ATTN, da.DECODE_ATTN_INT8, da.CHUNK_ATTN,
+            da.CHUNK_ATTN_INT8)
+
+
+def _phase10_counts() -> dict:
+    """Launches since the last reset: kernels A and B by symbol, kernel E
+    by form (both cache types)."""
+    fwd, dec, dec8, ch, ch8 = _phase10_kernels()
+    return {"flash_fwd": fwd.launches, "decode_attn": dec.launches,
+            "decode_attn_int8": dec8.launches,
+            "chunk_verify": ch.forms.get("verify", 0)
+            + ch8.forms.get("verify", 0),
+            "chunk_fill": ch.forms.get("fill", 0) + ch8.forms.get("fill", 0)}
+
+
+def _reset_phase10_counts() -> None:
+    for k in _phase10_kernels():
+        k.reset()
+
+
+def _ids_of(out) -> list:
+    """The generated ids of one entry point's output (a decode dict, a
+    demo result, or a batched dict's rows)."""
+    if "text" in out:
+        return list(out["ids"])
+    ids, n = out["ids"], out["n_ids"]
+    if ids.dim() == 1:
+        return ids[:int(n)].tolist()
+    return [ids[b, :int(n[b])].tolist() for b in range(ids.shape[0])]
+
+
+def _equal_share(a: list, b: list) -> float:
+    n = max(len(a), len(b))
+    return sum(x == y for x, y in zip(a, b)) / max(n, 1)
+
+
+def phase_decode_frontends(torch, dev, model, cfg, reqs, plain_run):
+    """Phase 10 on phase 5's model: the single-request and batched decode
+    entry points (10a), the engine with a drafter (10c), the serve CLI's
+    work function (10d) and the HTTP server (10e). Every kernel count is
+    set to 0 just before each run and read just after."""
+    import numpy as np
+
+    from metamorph_tpu_torch.convert import init_llama
+    from metamorph_tpu_torch.inference import decode as dec
+    from metamorph_tpu_torch.inference import demo
+    from metamorph_tpu_torch.inference import spec_decode as sd
+    from metamorph_tpu_torch.inference.profile_serve import _kernel_table
+    from metamorph_tpu_torch.models import llama as llama_lib
+    from metamorph_tpu_torch.multimodal.mm_utils import tokenizer_image_token
+
+    dcfg = drafter_1b_config()
+    t = time.perf_counter()
+    draft = init_llama(dcfg, seed=1, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"decode: 1B drafter init {time.perf_counter() - t:.1f}s")
+    totals = {k: 0 for k in _phase10_counts()}
+    runs = {}
+
+    def run(name, fn, need, new_tokens):
+        """fn() twice: the counts of the first run, its wall time, and
+        identical ids on the second."""
+        _reset_phase10_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _phase10_counts()
+        for k, n in counts.items():
+            totals[k] += n
+        again = fn()
+        same = _ids_of(out) == _ids_of(again)
+        missing = [k for k in need if counts[k] <= 0]
+        n_new = new_tokens(out)
+        row = dict(wall_s=wall, new_tokens=n_new, tok_per_s=n_new / wall,
+                   launches=counts, ids_repeat=same)
+        if "iters" in out:           # chunk steps; single-request runs
+            it = int(out["iters"])  # also give accepted drafts per step
+            row.update(iters=it, steps=out["steps"].tolist())
+            if out["steps"].dim() == 0:
+                row["accepted_per_chunk"] = (int(out["steps"]) - 1 - it) / it
+        runs[name] = (row, out)
+        log(f"decode {name}", json.dumps(row))
+        if not same or missing:
+            raise AssertionError(f"{name}: ids differ between two runs "
+                                 f"({not same}) or kernels not launched "
+                                 f"{missing}: {row}")
+        return out
+
+    steps1 = lambda o: int(o["steps"])
+    N = DECODE_NEW
+    # 10a: one text request (phase 5's 300-token prompt)
+    text = next(r for r in reqs if r["uid"] == "text300")["prompt_ids"]
+    ids_t = torch.as_tensor(text, device=dev)
+    with torch.no_grad():
+        pe = llama_lib.embed_tokens(model.llama, ids_t[None])
+    batch = {"tokens": text[None], "attn_mask": np.ones((1, len(text)),
+                                                        np.int32)}
+    g = run("generate", lambda: dec.generate(model, cfg, batch, None,
+                                             max_new_tokens=N),
+            ("flash_fwd", "decode_attn"), steps1)
+    stop = int(g["ids"][N // 2])       # an id the greedy run emits midway
+    run("greedy_int8_stop", lambda: dec.greedy_decode(
+        model, cfg, pe, max_new_tokens=N, stop_ids=(stop,), kv_int8=True),
+        ("flash_fwd", "decode_attn_int8"), steps1)
+    for k, form in ((4, "chunk_verify"), (8, "chunk_fill")):
+        run(f"spec{k}", lambda: sd.greedy_decode_spec(
+            model, cfg, pe, ids_t, max_new_tokens=N, spec_k=k),
+            ("flash_fwd", form), steps1)
+    run("draft4", lambda: sd.greedy_decode_spec_draft_model(
+        model, draft, cfg, dcfg, pe, ids_t, max_new_tokens=N, spec_k=4),
+        ("flash_fwd", "chunk_verify", "decode_attn"), steps1)
+    # one image request through the demo's work function (template,
+    # packer, tower, projector, `generate` with pixels)
+    frame = np.random.default_rng(3).integers(0, 256, (480, 640, 3),
+                                              dtype=np.uint8)
+
+    def demo_run(**kw):
+        return demo.run(model, cfg, word_tokenize,
+                        lambda ids: " ".join(map(str, ids)), 128000, [frame],
+                        "What is in this image?", "square", N, **kw)
+
+    n_ids = lambda o: len(o["ids"]) + o["n_image_tokens"]
+    run("demo_image", demo_run, ("flash_fwd", "decode_attn"), n_ids)
+    run("demo_image_spec8", lambda: demo_run(spec_k=8),
+        ("flash_fwd", "chunk_fill"), n_ids)
+    run("demo_image_draft4", lambda: demo_run(spec_k=4, draft=(draft, dcfg)),
+        ("flash_fwd", "chunk_verify", "decode_attn"), n_ids)
+    # the same image prompt, fused once, through the other entry points
+    img_ids = tokenizer_image_token(demo.build_prompt(
+        "What is in this image?", 1), word_tokenize, bos_token_id=128000)
+    with torch.no_grad():
+        emb, bt = dec._fused_embeds(
+            model, cfg, *demo.prepare_inputs(cfg, img_ids, [frame]))
+    n_img = int(bt["attn_mask"][0].sum())
+    pe_img, ids_img = emb[:, :n_img], bt["tokens"][0, :n_img]
+    gen_img = runs["demo_image"][1]["ids"]
+    stop_img = int(gen_img[min(N // 2, len(gen_img) - 1)])
+    run("demo_image_greedy_int8_stop", lambda: dec.greedy_decode(
+        model, cfg, pe_img, max_new_tokens=N, stop_ids=(stop_img,),
+        kv_int8=True), ("flash_fwd", "decode_attn_int8"), steps1)
+    run("demo_image_spec4", lambda: sd.greedy_decode_spec(
+        model, cfg, pe_img, ids_img, max_new_tokens=N, spec_k=4),
+        ("flash_fwd", "chunk_verify"), steps1)
+    del emb, pe_img
+    # the device's busy share over one greedy run, under the profiler
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        dec.generate(model, cfg, batch, None, max_new_tokens=N)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = sum(r["ms"] for r in _kernel_table(prof))
+    # 8 prompts of unequal length, left-padded as the JAX layout has them
+    rng = np.random.default_rng(2)
+    lens = [40, 77, 120, 200, 300, 700, 1000, 1500]
+    T0 = max(lens)
+    bids = np.zeros((len(lens), T0), np.int32)
+    mask = np.zeros((len(lens), T0), np.int32)
+    for b, n in enumerate(lens):
+        bids[b, T0 - n:] = rng.integers(10, 128000, (n,))
+        mask[b, T0 - n:] = 1
+    with torch.no_grad():
+        bemb = llama_lib.embed_tokens(model.llama,
+                                      torch.as_tensor(bids, device=dev))
+    nsum = lambda o: int(o["n_ids"].sum())
+    bg = run("batched_greedy", lambda: dec.batched_greedy_decode(
+        model, cfg, bemb, mask, max_new_tokens=N),
+        ("flash_fwd", "decode_attn"), nsum)
+    bs = run("batched_spec4", lambda: sd.batched_greedy_decode_spec(
+        model, cfg, bemb, mask, bids, max_new_tokens=N, spec_k=4),
+        ("flash_fwd", "chunk_verify"), nsum)
+    del bemb
+
+    # gates: the same prefill gives the same first token
+    first = {name: _ids_of(out)[0] for name, (_, out) in runs.items()
+             if not name.startswith(("batched", "demo"))}
+    demo_first = {name: _ids_of(out)[0] for name, (_, out) in runs.items()
+                  if name.startswith("demo")}
+    batched_first = [[r[0] for r in _ids_of(out)] for out in (bg, bs)]
+    if (len(set(first.values())) != 1 or len(set(demo_first.values())) != 1
+            or batched_first[0] != batched_first[1]):
+        raise AssertionError(f"first tokens differ: {first} {demo_first} "
+                             f"{batched_first}")
+    plain_ids = _ids_of(g)
+    equal = {name: _equal_share(plain_ids, _ids_of(runs[name][1]))
+             for name in ("spec4", "spec8", "draft4")}
+    equal["batched_spec4"] = statistics.mean(
+        _equal_share(a, b) for a, b in zip(_ids_of(bg), _ids_of(bs)))
+    row = {"runs": {k: r for k, (r, _) in runs.items()},
+           "ids_equal_to_plain_share": equal,
+           "device_busy_share_generate": kernel_ms / prof_wall_ms,
+           "profiled_generate": dict(wall_ms=prof_wall_ms,
+                                     kernel_ms=kernel_ms, tokens=N)}
+    log("decode entry points", json.dumps({
+        k: v for k, v in row.items() if k != "runs"}))
+    del runs, g, bg, bs, pe
+    free_memory(torch)
+
+    row["engine_draft"] = phase_engine_draft(torch, dev, model, cfg, reqs,
+                                             plain_run, draft, dcfg, totals)
+    del draft
+    free_memory(torch)
+    row["serve_cli"] = phase_serve_cli(torch, dev, model, cfg, totals)
+    row["http"] = phase_http(torch, dev, model, cfg, totals)
+    row["launches"] = totals
+    for k in ("flash_fwd", "decode_attn", "decode_attn_int8",
+              "chunk_verify", "chunk_fill"):
+        if totals[k] <= 0:
+            raise AssertionError(f"phase 10 never launched {k}: {totals}")
+    log("decode and front ends: launches", json.dumps(totals))
+    return row
+
+
+def phase_engine_draft(torch, dev, model, cfg, reqs, plain_run, draft, dcfg,
+                       totals):
+    """10c: ServeEngine(spec_k=4, draft=...) on phase 5's requests, with
+    the 1B drafter and then with the main LLaMA as its own drafter. Each
+    request has a slot of its own (7 requests, 8 slots), so a slot's
+    counter of accepted drafts is its request's. A greedy row's steps are
+    1 (prefill) + its chunk steps + its accepted drafts while only spec
+    ticks run, so (spec_k - 1) * (steps - 1 - accepted) is the drafts it
+    was proposed; a plain tick adds a step without proposing, so with
+    plain ticks the share read here is a lower bound."""
+    import numpy as np
+
+    from metamorph_tpu_torch.constants import LLAMA3_EOS_IDS
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+
+    budgets = {r["uid"]: r["max_new_tokens"] for r in reqs}
+    eos = set(LLAMA3_EOS_IDS)
+    rows = {}
+    for name, drafter in (("drafter_1b", (draft, dcfg)),
+                          ("self", (model.llama, cfg.llama))):
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(model, cfg, n_slots=8, max_cache_len=2048,
+                          spec_k=4, draft=drafter)
+        for r in reqs:
+            eng.submit(Request(**r))
+        _reset_phase10_counts()
+        slot_of = {}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        # ServeEngine.run's loop, reading which slot holds each request
+        while eng.pending or any(u is not None for u in eng.slot_uid):
+            eng.step()
+            slot_of.update({u: s for s, u in enumerate(eng.slot_uid)
+                            if u is not None})
+        done = {c.uid: c for c in eng.completed}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = _phase10_counts()
+        for k, n in counts.items():
+            totals[k] += n
+        if sorted(done) != sorted(budgets):
+            raise AssertionError(f"draft engine ({name}) served "
+                                 f"{sorted(done)}")
+        for uid, c in done.items():
+            stopped = len(c.ids) > 0 and int(c.ids[-1]) in eos
+            if not (c.steps == budgets[uid] or stopped):
+                raise AssertionError(f"{name} {uid}: {c.steps} steps")
+        extra = eng.state.spec_extra.tolist()
+        per_req = {u: (extra[s], 3 * (done[u].steps - 1 - extra[s]))
+                   for u, s in slot_of.items()}
+        accepted = sum(a for a, _ in per_req.values())
+        proposed = sum(p for _, p in per_req.values())
+        text = [v for u, v in per_req.items() if u.startswith("text")]
+        text_share = sum(a for a, _ in text) / max(sum(p for _, p in text), 1)
+        new_tokens = sum(c.steps for c in done.values())
+        rows[name] = dict(
+            requests=len(done), new_tokens=new_tokens, wall_s=wall,
+            tok_per_s=new_tokens / wall, accepted=accepted,
+            proposed=proposed, accepted_share=accepted / max(proposed, 1),
+            accepted_share_text=text_share,
+            accepted_proposed_by_request=per_req, ticks=dict(eng.tick_counts),
+            ids_equal_to_plain_share=statistics.mean(
+                _equal_share(list(plain_run[u].ids), list(done[u].ids))
+                for u in done),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            launches=counts)
+        log(f"draft engine ({name})", json.dumps(rows[name]))
+        need = ("flash_fwd", "chunk_verify", "decode_attn")
+        if any(counts[k] <= 0 for k in need):
+            raise AssertionError(f"draft engine ({name}) did not launch "
+                                 f"{need}: {counts}")
+        del eng, done
+        free_memory(torch)
+    share = rows["self"]["accepted_share_text"]
+    if share < SELF_DRAFT_MIN_ACCEPT:
+        raise AssertionError(f"the main LLaMA as its own drafter had "
+                             f"{share:.3f} of the drafts for text requests "
+                             f"accepted (< {SELF_DRAFT_MIN_ACCEPT})")
+    return rows
+
+
+def phase_serve_cli(torch, dev, model, cfg, totals):
+    """10d: the serve CLI's work function over a requests JSONL written
+    here (text rows, one long prompt that streams in through chunked
+    fill, one image row, per-row budgets), tokenized by `word_tokenize`,
+    the model given in memory."""
+    import numpy as np
+
+    from metamorph_tpu_torch.inference import serve_cli
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        rng = np.random.default_rng(5)
+        frame = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+        try:
+            from PIL import Image
+
+            image = os.path.join(d, "image.png")
+            Image.fromarray(frame).save(image)
+            frames_of = None                   # the CLI's own loader
+        except ImportError:
+            image = "inline"
+            frames_of = lambda path: [frame]
+        words = lambda n: " ".join(f"w{int(x)}" for x in
+                                   rng.integers(0, 5000, n))
+        rows = [{"prompt": words(12), "uid": "short", "max_new_tokens": 16},
+                {"prompt": words(700), "uid": "long", "max_new_tokens": 24},
+                {"prompt": "What is in this image?", "image": image,
+                 "uid": "image", "max_new_tokens": 20},
+                {"prompt": words(60), "uid": "default"},
+                {"prompt": words(200), "uid": "mid", "max_new_tokens": 8}]
+        path = os.path.join(d, "requests.jsonl")
+        with open(path, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        rows = [json.loads(line) for line in open(path)]
+        args = serve_cli.parse_args([
+            "--model-path", "-", "--tokenizer", "-", "--requests", path,
+            "--out", "-", "--max-new-tokens", "32"])
+        _reset_phase10_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = serve_cli.run(model, cfg, rows, word_tokenize,
+                            lambda ids: " ".join(map(str, ids)), 128000,
+                            args, frames_of=frames_of)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    counts = _phase10_counts()
+    for k, n in counts.items():
+        totals[k] += n
+    budgets = [r.get("max_new_tokens", 32) for r in rows]
+    if [o["uid"] for o in out] != [r["uid"] for r in rows] or not all(
+            1 <= o["steps"] <= b for o, b in zip(out, budgets)):
+        raise AssertionError(f"serve CLI: {out}")
+    if counts["flash_fwd"] <= 0 or counts["decode_attn"] <= 0:
+        raise AssertionError(f"serve CLI did not launch A and B: {counts}")
+    row = dict(requests=len(out), wall_s=wall, image_source=(
+        "png" if frames_of is None else "inline array"),
+        steps={o["uid"]: o["steps"] for o in out},
+        n_image_tokens={o["uid"]: o["n_image_tokens"] for o in out},
+        launches=counts)
+    log("serve CLI", json.dumps(row))
+    return row
+
+
+def phase_http(torch, dev, model, cfg, totals):
+    """10e: MetaMorphHTTPServer on 127.0.0.1:0 over an 8-slot engine, 8
+    concurrent requests through urllib, half of them streaming."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from metamorph_tpu_torch.inference.serve import ServeEngine
+    from metamorph_tpu_torch.inference.serve_http import MetaMorphHTTPServer
+
+    rng = np.random.default_rng(7)
+    lens = [40, 1500, 120, 700, 77, 300, 1000, 200]
+    bodies = [{"prompt_ids": rng.integers(10, 128000, (n,)).tolist(),
+               "max_new_tokens": 32, "stream": bool(i % 2)}
+              for i, n in enumerate(lens)]
+    srv = MetaMorphHTTPServer(ServeEngine(model, cfg, n_slots=8,
+                                          max_cache_len=4096),
+                              port=0, decode=lambda ids: " ".join(
+                                  map(str, ids)))
+    results, errors = {}, []
+
+    def go(i):
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/v1/completions",
+                data=json.dumps(bodies[i]).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            first = None
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if bodies[i]["stream"]:
+                    lines = []
+                    for line in r:
+                        if line.strip():
+                            first = first or time.perf_counter() - t0
+                            lines.append(json.loads(line))
+                    final = lines[-1]
+                    streamed = [t for x in lines[:-1] for t in x["ids"]]
+                    if not final.get("done") or streamed != final["ids"]:
+                        raise AssertionError(f"request {i}: streamed "
+                                             f"chunks != final ids")
+                else:
+                    final = json.loads(r.read())
+            results[i] = dict(first_s=first, done_s=time.perf_counter() - t0,
+                              n=len(final["ids"]))
+        except Exception as e:              # noqa: BLE001 (re-raised below)
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    _reset_phase10_counts()
+    srv.start()
+    try:
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/health",
+                                    timeout=30) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.stop()
+    counts = _phase10_counts()
+    for k, n in counts.items():
+        totals[k] += n
+    if errors or len(results) != len(bodies):
+        raise AssertionError(f"HTTP: {errors or sorted(results)}")
+    if not (health["slots_free"] == 8 and health["pending"] == 0):
+        raise AssertionError(f"HTTP health after the run: {health}")
+    if counts["flash_fwd"] <= 0 or counts["decode_attn"] <= 0:
+        raise AssertionError(f"HTTP path did not launch A and B: {counts}")
+    firsts = [r["first_s"] for r in results.values() if r["first_s"]]
+    dones = [r["done_s"] for r in results.values()]
+    row = dict(requests=len(results), streaming=len(firsts),
+               first_chunk_s_median=statistics.median(firsts),
+               first_chunk_s_max=max(firsts),
+               completion_s_median=statistics.median(dones),
+               completion_s_max=max(dones), health=health, launches=counts)
+    log("HTTP server", json.dumps(row))
+    del srv
+    free_memory(torch)
+    return row
 
 
 def phase_train_main(torch, dev):
@@ -2011,11 +2623,13 @@ def phase_weights(torch, dev, d, sums, cfg5, reqs, plain_run, train_row):
     return row
 
 
-def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
-                   options_rows, train_row, recipe_row, weights_row) -> dict:
+def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
+                   options_rows, decode_row, train_row, recipe_row,
+                   weights_row) -> dict:
     """The summary line: one entry per kernel, its launches on the main
-    paths (summed, and by path for kernels A-D), its worst error, and its
-    time, plain time, bound and library time at the main-path shape."""
+    paths (summed, and by path), its worst error, and its time, plain time,
+    bound and library time at the main-path shape (kernels B and E also at
+    the 1B drafter's head dim 64, under "forms")."""
     fl = kernel_rows["flash"][0]       # the main path's 2048-bucket shape
     de = kernel_rows["decode"][0]
     bw = bwd_rows[0]                   # causal T=4096, the train main path
@@ -2028,9 +2642,12 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
     rl = recipe_row["launches"]
     wl = weights_row["launches_total"]
     ol = {k: r["launches"] for k, r in options_rows.items()}
+    dl = decode_row["launches"]
 
-    def by_path(symbol, serve=0):
-        paths = {"serve": serve, "train_main": tl.get(symbol, 0),
+    def by_path(symbol, serve=0, decode=0, options=0):
+        paths = {"serve": serve, "serve_options": options,
+                 "decode_frontends": decode,
+                 "train_main": tl.get(symbol, 0),
                  "recipe_data_path": rl.get(symbol, 0),
                  "weights": wl.get(symbol, 0)}
         return {"launches": sum(paths.values()),
@@ -2056,7 +2673,9 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
          "source": "metamorph_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "metamorph_tpu/ops/flash_attention.py:228, "
                      "metamorph_tpu/ops/flash_attention.py:287",
-         **by_path("mm_flash_fwd_bf16", main_row["launches"]["flash_fwd"]),
+         **by_path("mm_flash_fwd_bf16", main_row["launches"]["flash_fwd"],
+                   dl["flash_fwd"],
+                   sum(ol[k]["mm_flash_fwd_bf16"]["total"] for k in ol)),
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
          **timing(fl),
          "forms": {f"causal_T{r['T']}": timing(r)
@@ -2064,9 +2683,13 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
         {"name": "decode_attn", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
          "replaces": "metamorph_tpu/ops/decode_attention.py:191",
-         **by_path("mm_decode_attn_bf16", main_row["launches"]["decode_attn"]),
-         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["decode"]),
-         **timing(de)},
+         **by_path("mm_decode_attn_bf16", main_row["launches"]["decode_attn"],
+                   dl["decode_attn"],
+                   ol["bf16"]["mm_decode_attn_bf16"]["total"]),
+         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["decode"]
+                            + drafter_rows["decode"]),
+         **timing(de),
+         "forms": {"dh64_drafter": timing(drafter_rows["decode"][0])}},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "metamorph_tpu/ops/flash_attention.py:499, "
@@ -2088,30 +2711,33 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
          "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
          "replaces": "metamorph_tpu/ops/decode_attention.py:191 "
                      "(int8 branch)",
-         "launches": ol["int8"]["mm_decode_attn_int8"]["total"],
+         **by_path("mm_decode_attn_int8",
+                   decode=dl["decode_attn_int8"],
+                   options=ol["int8"]["mm_decode_attn_int8"]["total"]),
          "max_abs_err": max(r["max_abs_err"]
                             for r in opt_rows["decode_int8"]),
          **timing(d8)},
     ]}
-    # kernel E: one C entry point per cache type; the call site tells the
-    # verify form (`chunk_attention_batched`, chunk_attn.cu's kernel) from
-    # the fill form (`chunk_attention`, chunk_fill.cu's kernel)
-    for name, src, line, site, form, r in (
-            ("chunk_attn", "chunk_attn.cu", 438, "chunk_attention_batched",
-             "verify", ve),
-            ("chunk_fill", "chunk_fill.cu", 317, "chunk_attention", "fill",
-             fe)):
+    # kernel E: one C entry point per cache type; the wrapper counts the
+    # verify form (chunk_attn.cu's kernel, G * C <= 16 packed rows) apart
+    # from the fill form (chunk_fill.cu's kernel)
+    for name, src, line, form, r in (
+            ("chunk_attn", "chunk_attn.cu", 438, "verify", ve),
+            ("chunk_fill", "chunk_fill.cu", 317, "fill", fe)):
+        dh64 = drafter_rows.get(form, [])
+        forms = {f"{x['dtype']}_off{x['offs'][0]}": timing(x)
+                 for x in opt_rows["chunk"] if x["form"] == form}
+        forms.update({"dh64_drafter": timing(x) for x in dh64})
         summary["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"metamorph_tpu_torch/csrc/{src}",
             "replaces": f"metamorph_tpu/ops/decode_attention.py:{line}",
-            "launches": sum(ol[k][f"mm_chunk_attn_{k}"].get(site, 0)
-                            for k in ("bf16", "int8")),
+            **by_path(f"mm_chunk_attn_{form}", decode=dl[f"chunk_{form}"],
+                      options=sum(ol[k][f"mm_chunk_attn_{k}"]["forms"].get(
+                          form, 0) for k in ("bf16", "int8"))),
             "max_abs_err": max(x["max_abs_err"] for x in opt_rows["chunk"]
-                               if x["form"] == form),
-            **timing(r),
-            "forms": {f"{x['dtype']}_off{x['offs'][0]}": timing(x)
-                      for x in opt_rows["chunk"] if x["form"] == form}})
+                               + dh64 if x.get("form") == form),
+            **timing(r), "forms": forms})
     return summary
 
 
@@ -2149,6 +2775,7 @@ def free_memory(torch) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2183,11 +2810,14 @@ def main() -> int:
     free_memory(torch)
     opt_rows = phase_option_kernels(torch, dev)
     free_memory(torch)
+    drafter_rows = phase_drafter_kernels(torch, dev)
+    free_memory(torch)
     phase_reference(torch, dev)
     phase_reference_options(torch, dev)
     phase_train_reference(torch, dev)
     main_row, served = phase_main(torch, dev)
     options_rows = phase_serve_options(torch, dev, *served)
+    decode_row = phase_decode_frontends(torch, dev, *served)
     model, cfg5, reqs, plain_run = served
     del served
     # phase 9's files (~20 GB): in the temp dir, deleted whatever happens
@@ -2210,9 +2840,10 @@ def main() -> int:
     recipe_row = phase_recipe_main(torch, dev, train_row)
     phase_recipe_small(torch, dev)
 
-    summary = kernel_summary(kernel_rows, bwd_rows, opt_rows, main_row,
-                             options_rows, train_row, recipe_row,
-                             weights_row)
+    summary = kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows,
+                             main_row, options_rows, decode_row, train_row,
+                             recipe_row, weights_row)
+    log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -5,14 +5,16 @@
 gives it) across: the [L, ...]-stacked layer weights become per-layer
 module parameters, with every dense weight kept [D_in, D_out]. LoRA
 factors (`layers/<sub>/<w>_lora_a`, `_lora_b`) come across as the layers'
-optional factor parameters.
+optional factor parameters. `llama_from_jax_params` does the same for a
+bare LLaMA tree (`init_llama_params`, e.g. a drafter).
 
 `to_jax_params` is the inverse: the module's weights (LoRA factors
 included) as the JAX tree of numpy arrays, so tests compare parameters
 leaf by leaf.
 
-`init_params` makes random weights on the device from a seed, at the scales
-the JAX initializers use (normal * fan_in**-0.5 for the LLaMA and SigLIP
+`init_params` (and `init_llama`, for a bare LLaMA) makes random weights
+on the device from a seed, at the scales the JAX initializers use
+(normal * fan_in**-0.5 for the LLaMA and SigLIP
 dense weights and the anyres `image_newline`, U(-1/sqrt(fan_in),
 1/sqrt(fan_in)) for the projector, the vision head and the `mlpmixer`
 mixers, ones for norm scales, zeros for SigLIP biases). It follows the
@@ -27,7 +29,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from metamorph_tpu_torch.config import MetaMorphConfig
+from metamorph_tpu_torch.config import LlamaConfig, MetaMorphConfig
+from metamorph_tpu_torch.models.llama import Llama
 from metamorph_tpu_torch.models.lora import LORA_TARGETS
 from metamorph_tpu_torch.models.metamorph import MetaMorph
 
@@ -56,6 +59,57 @@ def _np(x) -> np.ndarray:
     return np.asarray(x).astype(np.float32)
 
 
+def _put(param: torch.Tensor, value) -> None:
+    v = torch.from_numpy(_np(value))
+    if tuple(v.shape) != tuple(param.shape):
+        raise ValueError(f"shape {tuple(v.shape)} != {tuple(param.shape)}")
+    param.copy_(v)
+
+
+def _tree_dtype(llama_tree: Mapping[str, Any]) -> torch.dtype:
+    """float32 for a float32 tree, bfloat16 otherwise."""
+    emb = np.asarray(llama_tree["embed"]["embedding"])
+    return torch.float32 if emb.dtype == np.float32 else torch.bfloat16
+
+
+def _fill_llama(llama: Llama, lt: Mapping[str, Any], device, dtype) -> None:
+    """A JAX LLaMA tree (`init_llama_params` layout) into `llama`'s
+    parameters, LoRA factors included."""
+    _put(llama.embed, lt["embed"]["embedding"])
+    _put(llama.final_norm, lt["final_norm"]["scale"])
+    if llama.lm_head is not None:
+        _put(llama.lm_head, lt["lm_head"]["kernel"])
+    la = lt["layers"]
+    for l, layer in enumerate(llama.layers):
+        for name in ("wq", "wk", "wv", "wo"):
+            _put(getattr(layer, name), _np(la["attn"][name])[l])
+        for name in ("w_gate", "w_up", "w_down"):
+            _put(getattr(layer, name), _np(la["mlp"][name])[l])
+        _put(layer.input_norm, _np(la["input_norm"]["scale"])[l])
+        _put(layer.post_attn_norm, _np(la["post_attn_norm"]["scale"])[l])
+    for sub, name in LORA_TARGETS:
+        for key in (f"{name}_lora_a", f"{name}_lora_b"):
+            if key in la[sub]:
+                stacked = _np(la[sub][key])
+                for l, layer in enumerate(llama.layers):
+                    setattr(layer, key, nn.Parameter(
+                        torch.from_numpy(stacked[l]).to(device, dtype)))
+
+
+@torch.no_grad()
+def llama_from_jax_params(tree: Mapping[str, Any], cfg: LlamaConfig,
+                          device="cuda", dtype: Optional[torch.dtype] = None
+                          ) -> Llama:
+    """A bare JAX LLaMA tree (`init_llama_params`, e.g. a drafter) -> `Llama`
+    module on `device` (the card unless the caller passes another); dtype
+    as in `from_jax_params`."""
+    device = resolve_device(device)
+    dtype = dtype or _tree_dtype(tree)
+    llama = Llama(cfg, dtype=dtype, device=device)
+    _fill_llama(llama, tree, device, dtype)
+    return llama
+
+
 @torch.no_grad()
 def from_jax_params(tree: Mapping[str, Any], cfg: MetaMorphConfig,
                     device="cuda", dtype: Optional[torch.dtype] = None
@@ -64,72 +118,46 @@ def from_jax_params(tree: Mapping[str, Any], cfg: MetaMorphConfig,
     the caller passes another). `dtype` defaults to float32 for a float32
     tree and bfloat16 otherwise."""
     device = resolve_device(device)
-    if dtype is None:
-        emb = np.asarray(tree["llama"]["embed"]["embedding"])
-        dtype = torch.float32 if emb.dtype == np.float32 else torch.bfloat16
+    dtype = dtype or _tree_dtype(tree["llama"])
     model = MetaMorph(cfg, dtype=dtype, device=device)
-
-    def put(param: torch.Tensor, value) -> None:
-        v = torch.from_numpy(_np(value))
-        if tuple(v.shape) != tuple(param.shape):
-            raise ValueError(f"shape {tuple(v.shape)} != {tuple(param.shape)}")
-        param.copy_(v)
-
-    lt = tree["llama"]
-    put(model.llama.embed, lt["embed"]["embedding"])
-    put(model.llama.final_norm, lt["final_norm"]["scale"])
-    if model.llama.lm_head is not None:
-        put(model.llama.lm_head, lt["lm_head"]["kernel"])
-    la = lt["layers"]
-    for l, layer in enumerate(model.llama.layers):
-        for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(layer, name), _np(la["attn"][name])[l])
-        for name in ("w_gate", "w_up", "w_down"):
-            put(getattr(layer, name), _np(la["mlp"][name])[l])
-        put(layer.input_norm, _np(la["input_norm"]["scale"])[l])
-        put(layer.post_attn_norm, _np(la["post_attn_norm"]["scale"])[l])
-    for sub, name in LORA_TARGETS:
-        for key in (f"{name}_lora_a", f"{name}_lora_b"):
-            if key in la[sub]:
-                stacked = _np(la[sub][key])
-                for l, layer in enumerate(model.llama.layers):
-                    setattr(layer, key, nn.Parameter(
-                        torch.from_numpy(stacked[l]).to(device, dtype)))
+    _fill_llama(model.llama, tree["llama"], device, dtype)
 
     st = tree["siglip"]
     sm = model.siglip
-    put(sm.patch_kernel, st["patch_embed"]["kernel"])
-    put(sm.patch_bias, st["patch_embed"]["bias"])
-    put(sm.pos_embed, st["pos_embed"])
-    put(sm.final_ln_scale, st["final_ln"]["scale"])
-    put(sm.final_ln_bias, st["final_ln"]["bias"])
+    _put(sm.patch_kernel, st["patch_embed"]["kernel"])
+    _put(sm.patch_bias, st["patch_embed"]["bias"])
+    _put(sm.pos_embed, st["pos_embed"])
+    _put(sm.final_ln_scale, st["final_ln"]["scale"])
+    _put(sm.final_ln_bias, st["final_ln"]["bias"])
     sl = st["layers"]
     for l, layer in enumerate(sm.layers):
         for ln in ("ln1", "ln2"):
-            put(getattr(layer, f"{ln}_scale"), _np(sl[ln]["scale"])[l])
-            put(getattr(layer, f"{ln}_bias"), _np(sl[ln]["bias"])[l])
+            _put(getattr(layer, f"{ln}_scale"), _np(sl[ln]["scale"])[l])
+            _put(getattr(layer, f"{ln}_bias"), _np(sl[ln]["bias"])[l])
         for name in ("wq", "wk", "wv", "wo"):
-            put(getattr(layer, name), _np(sl["attn"][name]["kernel"])[l])
-            put(getattr(layer, "b" + name[1]), _np(sl["attn"][name]["bias"])[l])
+            _put(getattr(layer, name), _np(sl["attn"][name]["kernel"])[l])
+            _put(getattr(layer, "b" + name[1]),
+                 _np(sl["attn"][name]["bias"])[l])
         for name in ("fc1", "fc2"):
-            put(getattr(layer, name), _np(sl["mlp"][name]["kernel"])[l])
-            put(getattr(layer, f"{name}_bias"), _np(sl["mlp"][name]["bias"])[l])
+            _put(getattr(layer, name), _np(sl["mlp"][name]["kernel"])[l])
+            _put(getattr(layer, f"{name}_bias"),
+                 _np(sl["mlp"][name]["bias"])[l])
 
     for stack, sub in ((model.projector, tree["projector"]),
                        (model.vision_head, tree["vision_head"])):
         for i, dense in enumerate(stack.layers):
-            put(dense.kernel, sub[f"w{i}"]["kernel"])
-            put(dense.bias, sub[f"w{i}"]["bias"])
+            _put(dense.kernel, sub[f"w{i}"]["kernel"])
+            _put(dense.bias, sub[f"w{i}"]["bias"])
     for name in ("siglip_mixer", "image_newline"):
         if (getattr(model, name) is None) != (name not in tree):
             raise ValueError(f"the config and the tree disagree on {name!r}")
     if model.siglip_mixer is not None:
         for name in ("token_mixer", "channel_mixer"):
             dense = getattr(model.siglip_mixer, name)
-            put(dense.kernel, tree["siglip_mixer"][name]["kernel"])
-            put(dense.bias, tree["siglip_mixer"][name]["bias"])
+            _put(dense.kernel, tree["siglip_mixer"][name]["kernel"])
+            _put(dense.bias, tree["siglip_mixer"][name]["bias"])
     if model.image_newline is not None:
-        put(model.image_newline, tree["image_newline"])
+        _put(model.image_newline, tree["image_newline"])
     return model
 
 
@@ -200,6 +228,37 @@ def to_jax_params(model: MetaMorph) -> dict:
     return tree
 
 
+def _init_llama_(llama: Llama, lc: LlamaConfig, normal) -> None:
+    D, Fd = lc.hidden_size, lc.intermediate_size
+    H, Dh = lc.num_heads, lc.head_dim
+    normal(llama.embed, D)
+    if llama.lm_head is not None:
+        normal(llama.lm_head, D)
+    llama.final_norm.fill_(1.0)
+    for layer in llama.layers:
+        for name in ("wq", "wk", "wv", "w_gate", "w_up"):
+            normal(getattr(layer, name), D)
+        normal(layer.wo, H * Dh)
+        normal(layer.w_down, Fd)
+        layer.input_norm.fill_(1.0)
+        layer.post_attn_norm.fill_(1.0)
+
+
+@torch.no_grad()
+def init_llama(cfg: LlamaConfig, seed: int = 0, device="cuda",
+               dtype: torch.dtype = torch.bfloat16) -> Llama:
+    """A bare random LLaMA (e.g. a drafter) made on `device` (the card
+    unless the caller passes another) from `seed`, at `init_params`'s
+    scales."""
+    device = resolve_device(device)
+    llama = Llama(cfg, dtype=dtype, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    _init_llama_(llama, cfg, lambda p, fan_in: p.normal_(
+        0.0, fan_in ** -0.5, generator=gen))
+    return llama
+
+
 @torch.no_grad()
 def init_params(cfg: MetaMorphConfig, seed: int = 0, device="cuda",
                 dtype: torch.dtype = torch.bfloat16) -> MetaMorph:
@@ -222,21 +281,8 @@ def init_parts_(model: MetaMorph, cfg: MetaMorphConfig, seed: int = 0,
     def normal(p: torch.Tensor, fan_in: int) -> None:
         p.normal_(0.0, fan_in ** -0.5, generator=gen)
 
-    lc = cfg.llama
-    D, Fd = lc.hidden_size, lc.intermediate_size
-    H, Dh = lc.num_heads, lc.head_dim
     if "llama" in parts:
-        normal(model.llama.embed, D)
-        if model.llama.lm_head is not None:
-            normal(model.llama.lm_head, D)
-        model.llama.final_norm.fill_(1.0)
-        for layer in model.llama.layers:
-            for name in ("wq", "wk", "wv", "w_gate", "w_up"):
-                normal(getattr(layer, name), D)
-            normal(layer.wo, H * Dh)
-            normal(layer.w_down, Fd)
-            layer.input_norm.fill_(1.0)
-            layer.post_attn_norm.fill_(1.0)
+        _init_llama_(model.llama, cfg.llama, normal)
 
     sc = cfg.siglip
     sm = model.siglip

@@ -15,6 +15,9 @@ positions (`cache_lens`) make the rows ragged in time. The pieces:
     one batched verify chunk of [next token + spec_k - 1 prompt-lookup
     drafts] per row and accepts the matching prefix for greedy rows, so
     their ids equal the plain engine's;
+  * `_decode_all_spec_draft` (`draft=(draft_llama, draft_cfg)`): the same
+    verify tick with proposals from a small LLaMA that keeps a KV cache
+    per slot (`d_cache`) and its own count of ingested ids (`d_len`);
   * `_decode_fill_all*` / `_fill_core` (`fill_chunk > 0`): decode steps
     that each carry one `fill_chunk`-token piece of a long pending prompt
     into its slot, admitting the row on its last chunk;
@@ -30,8 +33,8 @@ chunks kernel E; on CPU tensors all take their plain versions. Unlike the
 JAX engine there is no size rule that sends small shapes to a plain path
 on the device.
 
-Not ported yet (they raise NotImplementedError): draft-model speculation
-(`draft`) and the shared prefix (`shared_prefix_ids`).
+Not ported yet (it raises NotImplementedError): the shared prefix
+(`shared_prefix_ids`).
 """
 
 from __future__ import annotations
@@ -46,8 +49,10 @@ import torch
 from metamorph_tpu_torch.config import MetaMorphConfig
 from metamorph_tpu_torch.constants import (IM_END_TOKEN_ID, IM_START_TOKEN_ID,
                                            LLAMA3_EOS_IDS)
-from metamorph_tpu_torch.inference.decode import _project_pred
-from metamorph_tpu_torch.inference.spec_decode import make_ngram_draft
+from metamorph_tpu_torch.inference.decode import _project_pred, _put_rows
+from metamorph_tpu_torch.inference.spec_decode import (_draft_embed,
+                                                       draft_propose,
+                                                       make_ngram_draft)
 from metamorph_tpu_torch.models import llama as llama_lib
 from metamorph_tpu_torch.models import metamorph as mm_lib
 
@@ -77,6 +82,9 @@ class ServeState:
     spec_extra: torch.Tensor         # [B] int32 — draft tokens accepted per
                                      #   row (never reset; the scheduler
                                      #   reads per-row deltas)
+    d_cache: Optional[Dict[str, torch.Tensor]]  # drafter KV cache
+                                     #   [L, B, KV, S, Dh] (None: no drafter)
+    d_len: torch.Tensor              # [B] int32 — ids the drafter ingested
 
 
 # Sampling looks at the top-K logits per row before the nucleus filter, as
@@ -99,16 +107,6 @@ def _sample_rows(generator: torch.Generator, logits: torch.Tensor,
     idx = torch.multinomial(torch.softmax(masked, dim=-1), 1,
                             generator=generator)
     return topi.gather(1, idx)[:, 0].to(torch.int32)
-
-
-def _put_rows(buf: torch.Tensor, b_idx: torch.Tensor, col: torch.Tensor,
-              where: torch.Tensor, val: torch.Tensor) -> None:
-    """buf[b, col[b]] = val[b] for rows where `where[b]`, in place. `col` is
-    clamped into range; an unselected row writes its old value back."""
-    col = col.clamp(max=buf.shape[1] - 1).long()
-    old = buf[b_idx, col]
-    cond = where.reshape(where.shape + (1,) * (old.dim() - 1))
-    buf[b_idx, col] = torch.where(cond, val.to(buf.dtype), old)
 
 
 def _advance_rows(model, cfg: MetaMorphConfig, state: ServeState,
@@ -274,6 +272,29 @@ def _decode_all_spec(model, state: ServeState, cfg: MetaMorphConfig,
     return state
 
 
+def _decode_all_spec_draft(model, draft, draft_cfg, state: ServeState,
+                           cfg: MetaMorphConfig, eos_ids: torch.Tensor,
+                           special_ids: torch.Tensor, n_steps: int = 1,
+                           spec_k: int = 4, sampling: bool = False,
+                           generator: Optional[torch.Generator] = None
+                           ) -> ServeState:
+    """Draft-MODEL speculative tick: like `_decode_all_spec`, but the
+    proposals come from `draft` (a small LLaMA) over per-slot caches
+    (`state.d_cache`). Per chunk step the drafter catches up on the ids
+    accepted since its last sync, at most spec_k per step (so a row
+    admitted through chunked fill, whose drafter starts at 0, converges
+    over a few ticks), then rolls spec_k - 1 single-token steps. Greedy
+    rows' streams stay exactly the plain engine's."""
+    K = cfg.mm.num_image_tokens
+    for _ in range(n_steps):
+        drafts, state.d_len = draft_propose(
+            draft, draft_cfg, state.d_cache, state.d_len, state.ids_all,
+            state.n_all, spec_k)
+        _spec_verify_tick(model, state, cfg, drafts, K, spec_k, eos_ids,
+                          special_ids, sampling, generator)
+    return state
+
+
 def _chunks_from_ids(model, cfg: MetaMorphConfig, ids: torch.Tensor,
                      offs: torch.Tensor, img: Optional[torch.Tensor],
                      img_pos: Optional[torch.Tensor], dtype,
@@ -368,6 +389,10 @@ def _fill_core(model, state: ServeState, cfg: MetaMorphConfig,
         state.temp = put(state.temp, fill_temp[i])
         state.top_p = put(state.top_p, fill_top_p[i])
         state.n_all = put(state.n_all, fill_n_all[i])
+        # the drafter (if any) lags a fill-admitted row by its whole prompt;
+        # the draft tick's catch-up ingests spec_k ids a step until synced
+        # (the row's drafts are dead until then; exactness is unaffected)
+        state.d_len = put(state.d_len, 0)
         h_last = h_chunk[(clen.long() - 1).clamp_min(0)]         # [D]
         h = torch.where(row[:, None], h_last[None], h_dec[:, 0])
         _advance_rows(model, cfg, state, h, state.active, K, eos_ids,
@@ -405,17 +430,19 @@ def _decode_fill_all_ids(model, state, cfg, chunk_ids, img, img_pos, img_on,
                       generator)
 
 
-# columns of the packed snapshot ahead of the ids (the JAX engine's first
-# five; its sixth, the drafter's lag, comes with draft models)
-_SNAP_HEAD = 5
+# columns of the packed snapshot ahead of the ids
+_SNAP_HEAD = 6
 
 
 def _snapshot(state: ServeState) -> torch.Tensor:
     """Everything the scheduler reads to harvest, packed into ONE int32
-    array [B, 5 + ids_cap]: active / n_ids / n_img / steps / spec_extra,
-    then each row's generated ids."""
+    array [B, 6 + ids_cap]: active / n_ids / n_img / steps / spec_extra /
+    the drafter's lag (max over rows of n_all - d_len; meaningful for draft
+    engines only), then each row's generated ids."""
+    lag = (state.n_all - state.d_len).max().expand_as(state.n_ids)
     head = torch.stack([state.active.to(torch.int32), state.n_ids,
-                        state.n_img, state.steps, state.spec_extra], dim=1)
+                        state.n_img, state.steps, state.spec_extra, lag],
+                       dim=1)
     return torch.cat([head, state.ids], dim=1)
 
 
@@ -445,10 +472,12 @@ def _embed_splice(model, cfg: MetaMorphConfig, ids: torch.Tensor,
 def _admit_reset_slots(state: ServeState, slots: torch.Tensor,
                        prompt_lens: torch.Tensor, max_new: torch.Tensor,
                        temps: torch.Tensor, top_ps: torch.Tensor,
-                       n_all: torch.Tensor) -> ServeState:
+                       n_all: torch.Tensor, d_len: torch.Tensor
+                       ) -> ServeState:
     """Reset every per-slot state-machine lane of the freshly admitted
     `slots` (in place)."""
     state.n_all[slots] = n_all.to(torch.int32)
+    state.d_len[slots] = d_len.to(torch.int32)
     state.cache_lens[slots] = prompt_lens.to(torch.int32)
     state.in_image[slots] = False
     state.img_count[slots] = 0
@@ -472,11 +501,15 @@ def _prefill_core(model, state: ServeState, cfg: MetaMorphConfig,
                   top_ps: torch.Tensor, eos_ids: torch.Tensor,
                   sampling: bool = False,
                   generator: Optional[torch.Generator] = None,
-                  prompt_token_ids: Optional[torch.Tensor] = None
-                  ) -> ServeState:
+                  prompt_token_ids: Optional[torch.Tensor] = None,
+                  draft=None) -> ServeState:
     """Prefill n same-bucket requests in ONE batched forward and admit each
     into its slot: write the KV regions, reset the rows' lanes, and run the
-    first transition from each prompt's last real hidden state."""
+    first transition from each prompt's last real hidden state. With a
+    drafter (`draft=(draft_llama, draft_cfg)`) and token ids, the drafter
+    prefills over the same ids into its slot rows; embeds-path rows start
+    its count at 0 and let the draft tick's catch-up sync on generated
+    ids."""
     K = cfg.mm.num_image_tokens
     n, T0b = prompt_embeds.shape[:2]
     dev = prompt_embeds.device
@@ -491,8 +524,14 @@ def _prefill_core(model, state: ServeState, cfg: MetaMorphConfig,
         n_all = prompt_lens
     else:
         n_all = torch.zeros_like(prompt_lens)
+    d_len = torch.zeros_like(prompt_lens)
+    if draft is not None and prompt_token_ids is not None:
+        d_emb = _draft_embed(draft[0], prompt_token_ids.clamp_min(0))
+        llama_lib.prefill(draft[0], draft[1], d_emb, pos, None,
+                          state.d_cache, rows=slots)
+        d_len = prompt_lens
     _admit_reset_slots(state, slots, prompt_lens, max_new, temps, top_ps,
-                       n_all)
+                       n_all, d_len)
 
     h_last_rows = h_all[torch.arange(n, device=dev),
                         prompt_lens.long() - 1]                  # [n, D]
@@ -516,13 +555,15 @@ def _prefill_admit(model, state, cfg, prompt_embeds, prompt_lens, slots,
 
 def _prefill_admit_ids(model, state, cfg, ids, img, img_pos, prompt_lens,
                        slots, max_new, temps, top_ps, eos_ids,
-                       sampling=False, generator=None) -> ServeState:
+                       sampling=False, generator=None,
+                       draft=None) -> ServeState:
     """Token-ids admission: embedding lookup and image splice run on the
-    device, and the prompt seeds the row's id history."""
+    device, and the prompt seeds the row's id history (and the drafter's
+    cache, with a drafter)."""
     pe = _embed_splice(model, cfg, ids, img, img_pos, state.next_embed.dtype)
     return _prefill_core(model, state, cfg, pe, prompt_lens, slots, max_new,
                          temps, top_ps, eos_ids, sampling, generator,
-                         prompt_token_ids=ids)
+                         prompt_token_ids=ids, draft=draft)
 
 
 @dataclass
@@ -576,7 +617,9 @@ class ServeEngine:
 
     The engine runs where the model's weights live (`model`'s device).
     Options, as in the JAX engine: `spec_k > 1` prompt-lookup speculation
-    (routed per tick by the rows' acceptance rates), `fill_chunk > 0`
+    (routed per tick by the rows' acceptance rates), or draft-model
+    speculation with `draft=(draft_llama, draft_cfg)` (a small `Llama`
+    module sharing the vocabulary, on the model's device), `fill_chunk > 0`
     chunked fill of long prompts while slots decode (up to `max_fills` at
     once; 0 when it does not divide `max_cache_len`), `kv_int8` the int8
     KV cache."""
@@ -591,8 +634,6 @@ class ServeEngine:
                  seed: int = 0, on_token=None, fill_chunk: int = 0,
                  max_fills: int = 2, kv_int8: bool = False, spec_k: int = 0,
                  draft=None, shared_prefix_ids=None):
-        if draft is not None:
-            raise _not_ported("draft-model speculation (draft)")
         if shared_prefix_ids is not None:
             raise _not_ported("the shared prefix (shared_prefix_ids)")
         self.model, self.cfg = model, cfg
@@ -620,6 +661,9 @@ class ServeEngine:
         # speculation: spec_k slack slots so a chunk written at the budget
         # boundary never clamps onto live entries
         self.spec_k = spec_k if spec_k > 1 else 0
+        if draft is not None and not self.spec_k:
+            raise ValueError("draft model requires spec_k >= 2")
+        self._draft = draft
         S_alloc = max_cache_len + (self.spec_k + 8 if self.spec_k else 0)
 
         def zeros(*shape, dt=torch.int32):
@@ -647,6 +691,10 @@ class ServeEngine:
                                dtype=torch.int32, device=dev),
             n_all=zeros(n_slots),
             spec_extra=zeros(n_slots),
+            d_cache=(llama_lib.init_kv_cache(
+                draft[1], n_slots, S_alloc, dtype=draft[0].embed.dtype,
+                device=dev) if draft is not None else None),
+            d_len=zeros(n_slots),
         )
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
@@ -806,7 +854,7 @@ class ServeEngine:
                 img_pos = tensor(pos_np, torch.int32)
             _prefill_admit_ids(self.model, self.state, self.cfg,
                                tensor(ids, torch.int32), img, img_pos, lens,
-                               slot_t, *common)
+                               slot_t, *common, draft=self._draft)
         now = time.monotonic()
         for slot, req in zip(slots, reqs):
             self.slot_uid[slot] = req.uid
@@ -844,9 +892,13 @@ class ServeEngine:
             snap[:, 3]
         # per-row accepted-drafts-per-chunk-step EMA from this tick's delta
         extras_row = snap[:, 4].astype(np.int64)
+        # a draft engine whose drafter is still catching up (lag > spec_k
+        # after a fill admission) produces dead drafts: those ticks are no
+        # evidence against speculation
+        syncing = self._draft is not None and int(snap[0, 5]) > self.spec_k
         if self._spec_ticked:
             self._spec_ticked = False
-            if self._spec_tick_n > 0:
+            if not syncing and self._spec_tick_n > 0:
                 delta = (extras_row - self._spec_extras_seen) \
                     / float(self._spec_tick_n)
                 for s in np.where(self._spec_tick_rows)[0]:
@@ -1063,9 +1115,16 @@ class ServeEngine:
             self.tick_counts["fill"] += 1
         elif occ:
             if self.spec_k and self._spec_worth_it(occ, n):
-                _decode_all_spec(self.model, self.state, self.cfg,
-                                 self._eos_ids, self._special_ids, n,
-                                 self.spec_k, self._sampling, self.generator)
+                if self._draft is not None:
+                    _decode_all_spec_draft(
+                        self.model, *self._draft, self.state, self.cfg,
+                        self._eos_ids, self._special_ids, n, self.spec_k,
+                        self._sampling, self.generator)
+                else:
+                    _decode_all_spec(self.model, self.state, self.cfg,
+                                     self._eos_ids, self._special_ids, n,
+                                     self.spec_k, self._sampling,
+                                     self.generator)
                 self._mark_spec_tick(occ, n)
                 self.tick_counts["spec"] += 1
             else:

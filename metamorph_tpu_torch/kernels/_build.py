@@ -125,19 +125,22 @@ class Kernel:
 
     `launch` calls the entry point, raises if it returned a nonzero
     cudaError_t (a refused launch never runs, and a later synchronize would
-    not report it), and only then adds one to `launches` and, when the
-    wrapper names its call site, to `sites[site]`."""
+    not report it), and only then adds one to `launches`, when the wrapper
+    names its call site to `sites[site]`, and when it names the kernel's
+    form (kernel E's verify or fill kernel) to `forms[form]`."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
         self.sites: Dict[str, int] = {}
+        self.forms: Dict[str, int] = {}
         self._fn = None
 
     def reset(self) -> None:
         self.launches = 0
         self.sites = {}
+        self.forms = {}
 
     def _bind(self):
         fn = getattr(LIBRARY.get(), self.symbol)
@@ -146,7 +149,8 @@ class Kernel:
         self._fn = fn
         return fn
 
-    def launch(self, *args, site: Optional[str] = None) -> None:
+    def launch(self, *args, site: Optional[str] = None,
+               form: Optional[str] = None) -> None:
         fn = self._fn or self._bind()
         err = fn(*args)
         if err != 0:
@@ -155,3 +159,5 @@ class Kernel:
         self.launches += 1
         if site is not None:
             self.sites[site] = self.sites.get(site, 0) + 1
+        if form is not None:
+            self.forms[form] = self.forms.get(form, 0) + 1

@@ -9,7 +9,8 @@ Attention goes through flash attention (`ops/flash_attention.py`, a
 differentiable `torch.autograd.Function` when the weights require grad) for
 full sequences, through decode attention (`ops/decode_attention.py`) for
 single-token steps and through chunk attention (the same module) for the
-speculative verify chunk (`decode_chunk_step_batched`) and the fused
+speculative verify chunks (`decode_chunk_step` of one cache row,
+`decode_chunk_step_batched` of every row) and the fused
 decode + prompt-chunk step of chunked fill (`decode_step_with_chunk`); each
 runs its CUDA kernels on the card and its plain version on the CPU. The
 layer loop is a Python loop; training checkpoints each layer with
@@ -391,6 +392,25 @@ def decode_step(model: Llama, cfg: LlamaConfig, x: torch.Tensor,
         h2 = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
         x = x + _mlp_block(layer, h2, cfg)
     return rms_norm(x, model.final_norm, cfg.rms_norm_eps), cache
+
+
+def decode_chunk_step(model: Llama, cfg: LlamaConfig, xc: torch.Tensor,
+                      chunk_pos: torch.Tensor,
+                      cache: Dict[str, torch.Tensor]):
+    """Speculative-verification step of cache row 0: run C token embeddings
+    `xc [C, D]` at the contiguous positions `chunk_pos [C]`, writing their
+    K/V at chunk_pos; chunk token c attends to keys j <= chunk_pos[0] + c.
+    The B=1 case of `decode_chunk_step_batched` (kernel E on the card: its
+    verify form while G * C <= 16, else its fill form).
+
+    The caller accepts a verified prefix and rolls its cache length back to
+    it; entries past the accepted point are stale but harmless: the mask
+    stops every query short of them, and the next chunk (which starts at
+    the rolled-back position and spans at least the overhang) overwrites
+    them before a length can reach them. Returns (h [C, D], cache)."""
+    h, cache = decode_chunk_step_batched(model, cfg, xc[None], chunk_pos[None],
+                                         chunk_pos[:1], cache)
+    return h[0], cache
 
 
 def decode_chunk_step_batched(model: Llama, cfg: LlamaConfig,

@@ -411,7 +411,8 @@ def _launch_chunk(q, k, v, rows, offs, layer: int, scale: float, k_scale,
     layer_off = layer * k.stride(0)
     Bc, G = k.shape[1], H // KV
     split = (1, None, None)          # the fill kernel unsplit: no workspace
-    if G * C > VERIFY_ROWS:
+    form = "fill" if G * C > VERIFY_ROWS else "verify"
+    if form == "fill":
         n_split = fill_splits(S, NB, C, G, KV, _sm_count(dev.index))
         if n_split > 1:
             tiles = NB * KV * math.ceil(G * C / FILL_ROWS)
@@ -430,7 +431,7 @@ def _launch_chunk(q, k, v, rows, offs, layer: int, scale: float, k_scale,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 rows.data_ptr(), offs.data_ptr(), NB, C, H, KV, S, Dh, Bc,
                 layer_off, k.stride(1), k.stride(2), float(scale), *split,
-                stream, site=site)
+                stream, site=site, form=form)
         else:
             ksp, vsp, sc_off, sc_sb, sc_sh = _scale_args(k, k_scale, v_scale,
                                                          layer)
@@ -438,7 +439,7 @@ def _launch_chunk(q, k, v, rows, offs, layer: int, scale: float, k_scale,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
                 o.data_ptr(), rows.data_ptr(), offs.data_ptr(), NB, C, H, KV,
                 S, Dh, Bc, layer_off, k.stride(1), k.stride(2), sc_off, sc_sb,
-                sc_sh, float(scale), *split, stream, site=site)
+                sc_sh, float(scale), *split, stream, site=site, form=form)
     return o
 
 

@@ -787,3 +787,44 @@ def test_anyres_train_step_on_card_matches_cpu(dev, tmp_path):
         assert float(m["n_text_tokens"]) > 1
     assert np.isfinite(losses["gpu"])
     assert abs(losses["gpu"] - losses["cpu"]) <= 2e-2 * abs(losses["cpu"])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_single_row_chunk_step_on_card_matches_cpu(dev, quant):
+    """`llama.decode_chunk_step` (one cache row) on the card, bf16 weights,
+    against the same step on the CPU in fp32, after a 10-token prefill:
+    a 4-token chunk at G=4 takes kernel E's verify form (16 packed rows),
+    an 8-token one its fill form; hidden states at cosine >= 0.999 (0.995
+    with the int8 cache, whose entries round to neighbouring steps from
+    bf16 and fp32 K/V)."""
+    from metamorph_tpu_torch.config import LlamaConfig
+    from metamorph_tpu_torch.convert import init_llama
+    from metamorph_tpu_torch.models import llama as L
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=256,
+                      intermediate_size=512, num_layers=2, num_heads=8,
+                      num_kv_heads=2, head_dim=64)
+    cpu = init_llama(cfg, seed=3, device="cpu", dtype=torch.float32)
+    gpu = init_llama(cfg, seed=3, device="cpu", dtype=torch.float32).to(
+        device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(4)
+    ids = torch.randint(0, 1000, (1, 10), generator=gen)
+    kern = da.CHUNK_ATTN_INT8 if quant else da.CHUNK_ATTN
+    kern.reset()
+    h = {}
+    with torch.no_grad():
+        for name, model, d in (("cpu", cpu, torch.device("cpu")),
+                               ("gpu", gpu, dev)):
+            cache = L.init_kv_cache(cfg, 1, 40, dtype=model.embed.dtype,
+                                    device=d, quantized=quant)
+            L.prefill(model, cfg, L.embed_tokens(model, ids.to(d)),
+                      torch.arange(10, device=d)[None], None, cache)
+            for C in (4, 8):
+                xc = L.embed_tokens(model, torch.arange(C, device=d) + 7)
+                h[name, C], _ = L.decode_chunk_step(
+                    model, cfg, xc, torch.arange(10, 10 + C, device=d), cache)
+    for C in (4, 8):
+        a, b = h["gpu", C].float().cpu(), h["cpu", C]
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
+        assert torch.isfinite(a).all() and cos >= (0.995 if quant else 0.999)
+    assert kern.forms == {"verify": 2, "fill": 2} and kern.launches == 4

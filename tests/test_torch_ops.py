@@ -42,6 +42,19 @@ ATT_TOL = dict(rtol=1e-5, atol=1e-5)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's side on one CPU thread. With torch's default thread count
+    the plain flash forward on a loaded machine (several test workers at
+    once) now and then gives an output up to ~1e-4 away from its usual
+    bits, past TOL, where one thread never has: the multithreaded CPU
+    path is not reproducible under load, so these comparisons pin it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(shape, seed):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
@@ -573,15 +586,18 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
                                    torch.zeros(1, dtype=torch.int32,
                                                device="meta"), layer=0)
     assert [kern.launches for kern in kernels] == [0] * len(kernels)
-    assert all(not kern.sites for kern in kernels)
+    assert all(not kern.sites and not kern.forms for kern in kernels)
 
 
 def test_package_imports_without_jax():
-    """Every module of metamorph_tpu_torch imports in a process where JAX
-    cannot be imported, and none of them pulls in the JAX package."""
+    """Every module of metamorph_tpu_torch imports in a process where
+    neither JAX nor the JAX package can be imported, and none of them pulls
+    either in. The decode entry points and the front ends are named, so
+    that they stay among the modules walked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['metamorph_tpu'] = None\n"
         "import metamorph_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
@@ -589,9 +605,12 @@ def test_package_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'metamorph_tpu' or "
         "m.startswith('metamorph_tpu.') or m.startswith('jax')]\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 26
+    names = set(res.stdout.split())
+    assert len(names) >= 31
+    assert {f"metamorph_tpu_torch.inference.{m}" for m in (
+        "decode", "spec_decode", "demo", "serve_cli", "serve_http")} <= names

@@ -103,12 +103,14 @@ def test_port_engine_matches_jax_engine(jax_params, variant):
 def test_port_engine_rejects_unported_options(jax_params):
     model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
                             device="cpu")
-    draft = (jax_params["llama"], JCFG.llama)
-    for kw in (dict(spec_k=4, draft=draft), dict(draft=draft),
-               dict(shared_prefix_ids=[1, 2, 3]),
+    for kw in (dict(shared_prefix_ids=[1, 2, 3]),
                dict(kv_int8=True, shared_prefix_ids=[1, 2, 3])):
         with pytest.raises(NotImplementedError):
             ServeEngine(model, CFG, **ENGINE, **kw)
+    # draft models are ported (tests/test_torch_spec.py); as in JAX, a
+    # drafter needs speculation on
+    with pytest.raises(ValueError, match="spec_k"):
+        ServeEngine(model, CFG, **ENGINE, draft=(model.llama, CFG.llama))
     eng = ServeEngine(model, CFG, **ENGINE)
     with pytest.raises(ValueError):       # prompt + budget > cache
         eng.submit(Request(prompt_ids=np.zeros(60, np.int32),
