@@ -134,7 +134,35 @@ Phases (any failure raises and the script exits nonzero):
                127.0.0.1:0 over an 8-slot engine, 8 concurrent requests
                (half streaming), time to first chunk and to completion.
                Kernels A, B (bf16, int8) and E (both forms) must launch.
-The phases run in the order 1-3c, 10b, 4, 5, 5d, 10, 9a, 5b, 9b-9e, 5c, 8.
+  11. int8 weights, the shared prefix and eval — 11a (after 10b) kernel
+               F (`csrc/w8_matmul.cu`) against its plain version at M = 8
+               and 32 rows on the 8B decode shapes (wq/wo, wk/wv, gate/up,
+               down, the lm head) and M = 4096 on the MLP's up shape:
+               relative error, bitwise repeats, device ms, bound, the plain
+               version's time and, as a yardstick only, `torch.matmul` on
+               the bf16 weight; on phase 5's model (after 10): 11b
+               `quantize_llama_decode`, the first-step logits' cosine to
+               the bf16 model per request (>= 0.99), phase 5's requests
+               through the engine on int8 weights with the bf16 and the
+               int8 cache, plain and spec_k=4, their ids against the same
+               int8 model on the plain product, one `greedy_decode`,
+               decode ticks profiled on both models (device and GEMM ms
+               per step); 11c a 1,024-token shared prefix with phase 5's
+               prompts as suffixes against the plain engine on prefix +
+               suffix, the admission tick's device ms with and without it,
+               then kv_int8 (against the plain engine's int8 cache),
+               spec_k=4 and the 1B-shaped drafter; 11d `run_task` on 16
+               rows (8 PNGs) against single-request gold answers, on bf16
+               and int8 weights, and (inside 8a, on its trained model and
+               batches) `evaluate`. Every comparison of two runs' ids
+               (`compare_ids`) reads both runs' own logits, recorded as
+               they ran (`LogitRecorder`): per request the first-step
+               cosine >= 0.99, and ids equal or parting only where the
+               swap lies within the logit difference measured between the
+               two runs.
+               Kernels F, A, B (bf16, int8) and E (both forms) must launch.
+The phases run in the order 1-3c, 10b, 11a, 4, 5, 5d, 10, 11b-11d, 9a, 5b,
+9b-9e, 5c, 8 (with 11d's `evaluate`).
 
 The last two lines of stdout are the kernel summary JSON and
 {"ok": true, "device": {...}}; the whole script's wall time is printed
@@ -147,6 +175,7 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -2060,9 +2089,12 @@ def phase_recipe_main(torch, dev, train_row):
             cfg, d, path, save_steps=0, no_resume=True,
             output_dir=os.path.join(d, "ready"))
         ready = [b for _, b in zip(range(RECIPE_TRAIN_STEPS), ready_iter)]
-        train(cfg, ready_args, ready, device=dev)
+        ready_out = train(cfg, ready_args, ready, device=dev)
         ready_steps = read_metrics(ready_args.output_dir)
-        del ready
+        # 11d: `evaluate` over the same batches on the trained model
+        eval_row = phase_evaluate(torch, ready_out["state"]["params"], cfg,
+                                  ready)
+        del ready, ready_out
     free_memory(torch)
 
     step_s = [m["step_s"] for m in steps]
@@ -2086,7 +2118,7 @@ def phase_recipe_main(torch, dev, train_row):
                host_ms_per_batch_max=max(host_ms),
                pack_ms_per_row={k: min(v) for k, v in pack_ms.items()},
                packs=packs, peak_mem_gib=peak, launches=launches,
-               train_wall_s=wall)
+               train_wall_s=wall, evaluate=eval_row)
     log("recipe main path", json.dumps(row))
     for i, (m, e) in enumerate(zip(steps, expect)):
         if not all(map(lambda x: x == x and abs(x) != float("inf"),
@@ -2623,13 +2655,768 @@ def phase_weights(torch, dev, d, sums, cfg5, reqs, plain_run, train_row):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 11: int8 weights (kernel F), the shared prefix, eval
+# ---------------------------------------------------------------------------
+
+W8_TOL = 4e-3          # kernel F: max|err| / max|ref| of the bf16 output
+                       # against fp32 sums of the same bf16 x and int8 weights
+                       # (one bf16 rounding, 2**-9 relative, plus sum order)
+W8_MIN_COS = 0.99      # first-step logits, int8 weights against bf16; and
+                       # per request between any two runs compared by ids
+RECORD_TOPK = 16       # logits kept per generated position by LogitRecorder
+W8_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+             (4096, 128256))     # (K, N): wq / wo, wk / wv, gate / up, down,
+                                 # the lm head at 8B width
+PREFIX_LEN = 1024
+EVAL_ROWS, EVAL_IMAGE_ROWS, EVAL_NEW = 16, 8, 16
+
+
+def _w8_kernels():
+    from metamorph_tpu_torch.ops import decode_attention as da
+    from metamorph_tpu_torch.ops import flash_attention as fa
+    from metamorph_tpu_torch.ops import quant as q
+
+    return (q.W8_MATMUL, fa.FLASH_FWD, da.DECODE_ATTN, da.DECODE_ATTN_INT8,
+            da.CHUNK_ATTN, da.CHUNK_ATTN_INT8)
+
+
+def _reset_p11() -> None:
+    for k in _w8_kernels():
+        k.reset()
+
+
+def _p11_counts() -> dict:
+    """Launches since the last reset: F, A and B by symbol, E by form."""
+    f, fwd, dec, dec8, ch, ch8 = _w8_kernels()
+    return {"w8_matmul": f.launches, "flash_fwd": fwd.launches,
+            "decode_attn": dec.launches, "decode_attn_int8": dec8.launches,
+            "chunk_verify": ch.forms.get("verify", 0)
+            + ch8.forms.get("verify", 0),
+            "chunk_fill": ch.forms.get("fill", 0) + ch8.forms.get("fill", 0)}
+
+
+def phase_w8_kernels(torch, dev):
+    """11a: kernel F against its plain version at the 8B decode shapes (M =
+    8 and 32 rows) and one prefill shape (M = 4096), with its bound and,
+    as a yardstick only, `torch.matmul` on the bf16 weight of the same
+    shape (the product F replaces; not the same function)."""
+    from metamorph_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1111)
+    rows = []
+    cases = [(M, kn) for M in (8, 32) for kn in W8_SHAPES]
+    cases.append((4096, (4096, 14336)))
+    for M, (K, N) in cases:
+        w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+        wq, wb = Q.quantize_weight(w), w.to(torch.bfloat16)
+        del w
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        out = Q.quantized_matmul(x, wq)
+        again = Q.quantized_matmul(x, wq)
+        ref = Q.quantized_matmul_plain(x.float(), wq)
+        abs_err = (out.float() - ref).abs().max().item()
+        rel_err = abs_err / ref.abs().max().item()
+        timer = cuda_graph_ms if M <= 32 else cuda_ms
+        b = bound(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * N * K)
+        ms = timer(lambda: Q.quantized_matmul(x, wq))
+        row = dict(M=M, K=K, N=N, form="gemv" if M <= 32 else "tiled",
+                   splits=(Q.gemv_splits(K, N, torch.cuda.get_device_properties(
+                       dev).multi_processor_count) if M <= 32 else None),
+                   max_abs_err=abs_err, rel_err=rel_err, tol=W8_TOL,
+                   bitwise_repeat=bool(torch.equal(out, again)),
+                   ms=ms, ms_method=("CUDA graph of 20 calls" if M <= 32
+                                     else "20 calls queued"),
+                   plain_ms=cuda_ms(lambda: Q.quantized_matmul_plain(x, wq)),
+                   library_ms=None,
+                   bf16_matmul_ms=timer(lambda: x @ wb),
+                   bf16_matmul_note="torch.matmul on the bf16 weight: the "
+                                    "product F replaces, timed as a "
+                                    "yardstick, not the same function",
+                   **b, **rates(b, ms))
+        log("kernel F w8_matmul", json.dumps(row))
+        if not (rel_err <= W8_TOL and row["bitwise_repeat"]):
+            raise AssertionError(f"kernel F disagrees with its plain version "
+                                 f"or does not repeat: {row}")
+        rows.append(row)
+        del wq, wb, x, out, again, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def request_embeds(torch, model, cfg, r, gen_ids=()):
+    """[1, T, D] embeddings of request r's prompt, its images spliced at
+    their positions, followed by `gen_ids`."""
+    import numpy as np
+
+    from metamorph_tpu_torch.models import llama as L
+
+    dev = model.llama.embed.device
+    ids = np.concatenate([np.asarray(r["prompt_ids"], np.int32),
+                          np.asarray(gen_ids, np.int32)])
+    with torch.no_grad():
+        pe = L.embed_tokens(model.llama, torch.as_tensor(ids, device=dev))
+        if r.get("image_embeds") is not None:
+            ie = torch.as_tensor(r["image_embeds"]).to(dev, pe.dtype)
+            for j, p in enumerate(np.asarray(r["image_positions"])):
+                pe[int(p):int(p) + ie.shape[1]] = ie[j]
+    return pe[None]
+
+
+def last_logits(torch, model, cfg, pe):
+    """fp32 logits after the last position of `pe` (a full forward on
+    kernel A)."""
+    from metamorph_tpu_torch.models import llama as L
+
+    with torch.no_grad():
+        pos = torch.arange(pe.shape[1], device=pe.device)[None]
+        h = L.llama_forward(model.llama, cfg.llama, pe, pos, None)
+        return L.lm_head(model.llama, cfg.llama, h[:, -1])[0]
+
+
+class LogitRecorder:
+    """While active, keeps the logits each greedy id of a run was picked
+    from, as the run computed them: the lm head inside the engine's state
+    machine (`serve._advance_rows`) and the single-request loops'
+    (`decode._advance`), and the spec tick's draft check. Per request
+    (`by_uid[uid][position] = (pick, top ids, top values)`, the top
+    RECORD_TOPK) and, for the first step, the whole logits (`first[uid]`).
+    Engine records are tied to requests by slot after each
+    `ServeEngine.step` (the slot's uid after the step where the step
+    admitted it, else before: a finished row records nothing more);
+    single-request loops record under `uid`, set by the caller. Nothing
+    synchronizes until `resolve`."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.uid = None
+        self.by_uid, self.first = {}, {}
+        self._tick, self._done = [], []
+        self._in_first = False
+        self._last = self._mid = None
+
+    def __enter__(self):
+        from metamorph_tpu_torch.inference import decode as D
+        from metamorph_tpu_torch.inference import serve as S
+        from metamorph_tpu_torch.models import llama as L
+
+        self._mods = (L, S, D)
+        self._orig = (L.lm_head, S._advance_rows, S._first_transition,
+                      S._spec_verify_tick, S.ServeEngine.step, D._advance)
+        head, adv_rows, first_tr, spec_tick, step, adv = self._orig
+        rec = self
+
+        def lm_head(*a, **k):
+            rec._last = head(*a, **k)
+            return rec._last
+
+        def picks(keep, pos, full=None):
+            logits = rec._last
+            v, i = logits.topk(RECORD_TOPK, dim=-1)
+            return ("step", keep, pos.clone(), logits.argmax(dim=-1), i, v,
+                    full)
+
+        def advance_rows(model, cfg, state, h_last, fresh, K, *a, **k):
+            act = fresh & state.active
+            keep = act & ~(act & state.in_image & (state.img_count < K))
+            pos = state.n_ids.clone()
+            out = adv_rows(model, cfg, state, h_last, fresh, K, *a, **k)
+            rec._tick.append(picks(keep, pos, rec._last.clone()
+                                   if rec._in_first else None))
+            rec._mid = state.n_ids
+            return out
+
+        def first_transition(*a, **k):
+            rec._in_first = True
+            try:
+                return first_tr(*a, **k)
+            finally:
+                rec._in_first = False
+
+        def spec_verify(model, state, cfg, drafts, K, spec_k, *a, **k):
+            out = spec_tick(model, state, cfg, drafts, K, spec_k, *a, **k)
+            if spec_k > 1:      # the draft check's head, [B * (spec_k-1), V]
+                B, logits = drafts.shape[0], rec._last
+                v, i = logits.topk(RECORD_TOPK, dim=-1)
+                rec._tick.append(("spec", state.n_ids - rec._mid, rec._mid,
+                                  logits.argmax(dim=-1).reshape(B, -1),
+                                  i.reshape(B, spec_k - 1, -1),
+                                  v.reshape(B, spec_k - 1, -1)))
+            return out
+
+        def engine_step(eng):
+            before = list(eng.slot_uid)
+            rec._tick = []
+            out = step(eng)
+            after = list(eng.slot_uid)
+            rec._done.append(([x if x is not None and x != y else y
+                               for y, x in zip(before, after)], rec._tick))
+            rec._tick = []
+            return out
+
+        def advance(model, cfg, state, h_last, K, *a, **k):
+            act = ~state.done
+            keep = act & ~(act & state.in_image & (state.img_count < K))
+            pos = state.n_ids.clone()
+            out = adv(model, cfg, state, h_last, K, *a, **k)
+            first = rec.uid not in rec.first and rec.uid not in {
+                u for uids, _ in rec._done for u in uids}
+            rec._done.append(([rec.uid], [picks(
+                keep, pos, rec._last.clone() if first else None)]))
+            return out
+
+        L.lm_head, S._advance_rows, S._first_transition = (
+            lm_head, advance_rows, first_transition)
+        S._spec_verify_tick, S.ServeEngine.step, D._advance = (
+            spec_verify, engine_step, advance)
+        return self
+
+    def __exit__(self, *exc):
+        L, S, D = self._mods
+        (L.lm_head, S._advance_rows, S._first_transition,
+         S._spec_verify_tick, S.ServeEngine.step, D._advance) = self._orig
+        self.resolve()
+        return False
+
+    def resolve(self) -> None:
+        """Moves the records to the host, by request and position."""
+        for uids, tick in self._done:
+            for r in tick:
+                kind, r = r[0], [x.cpu() if hasattr(x, "cpu") else x
+                                 for x in r[1:]]
+                if kind == "step":
+                    keep, pos, pick, ids, vals, full = r
+                    for b in range(len(uids)):
+                        if uids[b] is None or not bool(keep[b]):
+                            continue
+                        p = int(pos[b])
+                        self.by_uid.setdefault(uids[b], {})[p] = (
+                            int(pick[b]), ids[b].tolist(), vals[b].tolist())
+                        if full is not None and p == 0:
+                            self.first[uids[b]] = full[b].float()
+                else:
+                    n_extra, mid, pick, ids, vals = r
+                    for b in range(len(uids)):
+                        for j in range(int(n_extra[b]) if uids[b] is not None
+                                       else 0):
+                            self.by_uid.setdefault(uids[b], {})[
+                                int(mid[b]) + j] = (int(pick[b, j]),
+                                                    ids[b, j].tolist(),
+                                                    vals[b, j].tolist())
+        self._done = []
+
+    def ids(self, uid) -> list:
+        """The ids the run picked for `uid`, in order, as recorded."""
+        rec = self.by_uid.get(uid, {})
+        return [rec[p][0] for p in range(len(rec)) if p in rec]
+
+
+def ids_of(done) -> dict:
+    """{uid: ids} of a run's completions."""
+    return {u: [int(t) for t in c.ids] for u, c in done.items()}
+
+
+def compare_ids(torch, tag, ref_rec, rec, ref_ids=None, ids=None) -> dict:
+    """Two runs of the same requests, from their own recorded logits
+    (`LogitRecorder`): per request, the first-step logits' cosine must be
+    >= W8_MIN_COS, and the ids equal or, where they first part at position
+    p (the reference picks a, the run b), the swap must lie within the
+    logit difference measured between the two runs: each run holds the
+    other's pick in its top RECORD_TOPK, and the two margins (a over b in
+    the reference, b over a in the run) add up to at most twice the largest
+    |reference - run| difference over the ids both tops share, taken at
+    the positions before p and at p apart from a and b. `ref_ids` / `ids`
+    (by uid) are the runs' own outputs, checked against what was recorded;
+    without them the recorded picks are the ids. Prints and returns the
+    report; raises on any other difference."""
+    report, bad = {}, []
+    for uid in sorted(ref_rec.by_uid, key=str):
+        a = ref_rec.ids(uid) if ref_ids is None else ref_ids[uid]
+        b = rec.ids(uid) if ids is None else ids[uid]
+        if a != ref_rec.ids(uid) or b != rec.ids(uid):
+            bad.append(uid)
+            report[uid] = {"recorded": False}
+            continue
+        cos = torch.nn.functional.cosine_similarity(
+            ref_rec.first[uid], rec.first[uid], dim=0).item()
+        entry = {"first_step_cosine": cos}
+        report[uid] = entry
+        if cos < W8_MIN_COS:
+            bad.append(uid)
+        if a == b:
+            continue
+        p = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]),
+                 min(len(a), len(b)))
+        entry.update(diverge_at=p, of=len(a))
+        if p >= min(len(a), len(b)):
+            bad.append(uid)         # one run stopped where the other went on
+            continue
+        diff = 0.0
+        for q in range(p + 1):
+            ra, rb = ref_rec.by_uid[uid][q], rec.by_uid[uid][q]
+            va, vb = dict(zip(ra[1], ra[2])), dict(zip(rb[1], rb[2]))
+            for t in set(va) & set(vb) - ({a[p], b[p]} if q == p else set()):
+                diff = max(diff, abs(va[t] - vb[t]))
+        va, vb = [dict(zip(r[1], r[2])) for r in (ref_rec.by_uid[uid][p],
+                                                  rec.by_uid[uid][p])]
+        if b[p] not in va or a[p] not in vb:
+            entry["in_tops"] = False
+            bad.append(uid)
+            continue
+        m_ref, m_run = va[a[p]] - va[b[p]], vb[b[p]] - vb[a[p]]
+        entry.update(margin_ref=m_ref, margin_run=m_run,
+                     measured_max_diff=diff,
+                     within=m_ref + m_run <= 2 * diff)
+        if not entry["within"]:
+            bad.append(uid)
+    log(f"ids {tag}", json.dumps(report))
+    if bad:
+        raise AssertionError(f"{tag}: runs differ beyond their measured "
+                             f"logit difference: "
+                             f"{ {u: report[u] for u in bad} }")
+    return report
+
+
+def serve_counted(torch, model, cfg, reqs, profile_first=False, **kw):
+    """Phase 5's engine (8 slots, 4096-token cache) with `kw` on `reqs`,
+    every kernel count set to 0 just before the engine is built (a shared
+    prefix's prefill is part of the run) and read just after, under a
+    LogitRecorder: (done by uid, row, recorder). With `profile_first`, the
+    first tick (the admissions and one decode tick) runs under the
+    profiler and its device ms is in the row."""
+    with LogitRecorder(torch) as rec:
+        done, row = _serve_counted(torch, model, cfg, reqs, profile_first,
+                                   **kw)
+    return done, row, rec
+
+
+def _serve_counted(torch, model, cfg, reqs, profile_first, **kw):
+    import numpy as np
+
+    from metamorph_tpu_torch.constants import LLAMA3_EOS_IDS
+    from metamorph_tpu_torch.inference.profile_serve import _profiled
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+
+    _reset_p11()            # a prefix engine's prefill counts (kernel A)
+    eng = ServeEngine(model, cfg, n_slots=8, max_cache_len=4096, **kw)
+    for r in reqs:
+        eng.submit(Request(**r))
+    torch.cuda.synchronize()
+    first, profiled_s = {}, 0.0
+    if profile_first:
+        table, wall_ms = _profiled(eng.step)
+        profiled_s = wall_ms / 1e3
+        first = dict(first_tick_device_ms=sum(r["ms"] for r in table),
+                     first_tick_wall_ms=wall_ms,
+                     first_tick_flash_fwd_ms=sum(
+                         r["ms"] for r in table
+                         if "flash_fwd_kernel" in r["name"]),
+                     first_tick_chunk_fill_ms=sum(
+                         r["ms"] for r in table
+                         if "chunk_fill_kernel" in r["name"]),
+                     first_tick_w8_ms=sum(r["ms"] for r in table
+                                          if "w8_" in r["name"]),
+                     first_tick_launches=_p11_counts())
+    t = time.perf_counter()
+    done = {c.uid: c for c in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t + profiled_s  # not the profiler's tables
+    counts = _p11_counts()
+    eos = set(LLAMA3_EOS_IDS)
+    if sorted(done) != sorted(r["uid"] for r in reqs):
+        raise AssertionError(f"served {sorted(done)}")
+    for r in reqs:
+        c = done[r["uid"]]
+        stopped = len(c.ids) > 0 and int(c.ids[-1]) in eos
+        if not (c.steps == r["max_new_tokens"] or stopped):
+            raise AssertionError(f"{r['uid']}: {c.steps} steps, budget "
+                                 f"{r['max_new_tokens']}")
+        if not np.isfinite(c.image_embeds).all():
+            raise AssertionError(f"{r['uid']}: non-finite image embeds")
+    if not torch.isfinite(eng.state.next_embed).all():
+        raise AssertionError("non-finite hidden state fed back")
+    new_tokens = sum(c.steps for c in done.values())
+    row = dict(wall_s=wall, new_tokens=new_tokens,
+               tok_per_s=new_tokens / wall, ticks=dict(eng.tick_counts),
+               spec_accepted=eng.spec_accepted, launches=counts, **first)
+    del eng
+    return done, row
+
+
+def host_cost(torch, model, cfg, bf_llama, q_llama) -> dict:
+    """The host's side of int8 weights, bf16 and int8 in turns within one
+    process (the host clock of that machine drifts by tens of percent
+    between runs): (1) host us per call of kernel F's wrapper against
+    `torch.matmul` on the bf16 weight, layer 0's wk at decode's [8, 1,
+    4096] (2,000 queued calls, 3 rounds each); (2) one engine (8 slots,
+    profile_serve's prompts) whose LLaMA is swapped between ticks: 6
+    rounds of 3 decode ticks per model, alternating which goes first,
+    wall and process CPU ms per step."""
+    import numpy as np
+
+    from metamorph_tpu_torch.inference.profile_serve import PROMPTS
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+    from metamorph_tpu_torch.ops import quant as Q
+
+    dev = bf_llama.embed.device
+    wq, wb = q_llama.layers[0].wk, bf_llama.layers[0].wk
+    x = torch.randn((8, 1, cfg.llama.hidden_size), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(13)
+                    ).to(wb.dtype)
+    calls = {"w8_wrapper": lambda: Q.quantized_matmul(x, wq),
+             "bf16_matmul": lambda: x @ wb}
+    us = {k: [] for k in calls}
+    for _ in range(3):
+        for k, f in calls.items():
+            for _ in range(50):
+                f()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(2000):
+                f()
+            us[k].append((time.perf_counter() - t) / 2000 * 1e6)
+            torch.cuda.synchronize()
+    eng = ServeEngine(model, cfg, n_slots=8, max_cache_len=4096)
+    rng = np.random.default_rng(0)
+    for n in PROMPTS:
+        eng.submit(Request(prompt_ids=rng.integers(10, 128000, (n,)).astype(
+            np.int32), max_new_tokens=400, uid=n))
+    models = {"bf16": bf_llama, "int8": q_llama}
+    eng.step()                                   # admissions
+    for llm in models.values():
+        model.llama = llm
+        eng.step()
+    wall = {k: [] for k in models}
+    cpu = {k: [] for k in models}
+    steps = 3 * eng.steps_per_sync
+    for rnd in range(6):
+        for k in (("bf16", "int8") if rnd % 2 == 0 else ("int8", "bf16")):
+            model.llama = models[k]
+            torch.cuda.synchronize()
+            t, c = time.perf_counter(), time.process_time()
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+            wall[k].append((time.perf_counter() - t) * 1e3 / steps)
+            cpu[k].append((time.process_time() - c) * 1e3 / steps)
+    model.llama = q_llama
+    del eng
+    med = statistics.median
+    return {"host_us_per_call": {k: v for k, v in us.items()},
+            "host_us_per_call_median": {k: med(v) for k, v in us.items()},
+            "ticks_wall_ms_per_step": wall, "ticks_cpu_ms_per_step": cpu,
+            "ticks_wall_ms_per_step_median": {k: med(v)
+                                              for k, v in wall.items()},
+            "tok_per_s_median": {k: 8e3 / med(v) for k, v in wall.items()}}
+
+
+def phase_int8_weights(torch, dev, model, cfg, reqs, plain_run, main_row):
+    """11b: `quantize_llama_decode` on phase 5's model; phase 5's requests
+    through ServeEngine on int8 weights (bf16 and int8 cache, plain and
+    spec_k=4); the first-step logits against the bf16 model (cosine per
+    request); ids against the same int8 model on the plain product; one
+    `greedy_decode`; decode ticks profiled on both models. Then 11d's
+    task runs on the int8 model. The bf16 LLaMA is put back at the end."""
+    from metamorph_tpu_torch.inference import decode as dec
+    from metamorph_tpu_torch.inference.profile_serve import profile_ticks
+    from metamorph_tpu_torch.models import llama as L
+    from metamorph_tpu_torch.ops import quant as Q
+
+    def first_logits():
+        return torch.stack([last_logits(torch, model, cfg, request_embeds(
+            torch, model, cfg, r)) for r in reqs]).cpu()
+
+    row = {"bf16_profile": profile_ticks(model, cfg, ticks=2)[0]}
+    logits_bf = first_logits()
+    bf_llama = model.llama
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model.llama = Q.quantize_llama_decode(bf_llama)
+    torch.cuda.synchronize()
+    row["quantize_s"] = time.perf_counter() - t
+    row["int8_llama_gib"] = sum(
+        b.numel() * b.element_size() for m in model.llama.modules()
+        if isinstance(m, Q.QuantizedWeight) for b in m.buffers()) / 2**30
+    row["quantize_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    try:
+        logits_q = first_logits()
+        cos = torch.nn.functional.cosine_similarity(logits_q, logits_bf,
+                                                    dim=-1)
+        row["first_step_logit_cosine"] = {
+            r["uid"]: c for r, c in zip(reqs, cos.tolist())}
+        log("int8 weights: first-step logit cosine to bf16",
+            json.dumps(row["first_step_logit_cosine"]))
+        if cos.min().item() < W8_MIN_COS:
+            raise AssertionError(f"int8 logits cosine {cos.tolist()} < "
+                                 f"{W8_MIN_COS}")
+        row["host_cost"] = host_cost(torch, model, cfg, bf_llama,
+                                     model.llama)
+        log("int8 weights: host cost against bf16, in turns",
+            json.dumps(row["host_cost"]))
+        runs, recs = {}, {}
+        for kv_int8 in (False, True):
+            for spec_k in (0, 4):
+                torch.cuda.reset_peak_memory_stats()
+                key = f"{'int8' if kv_int8 else 'bf16'}_cache" + (
+                    f"_spec{spec_k}" if spec_k else "")
+                runs[key], r, recs[key] = serve_counted(
+                    torch, model, cfg, reqs, kv_int8=kv_int8, spec_k=spec_k)
+                r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                row[key] = r
+                log(f"int8 weights: engine {key}", json.dumps(r))
+                if r["launches"]["w8_matmul"] <= 0:
+                    raise AssertionError(f"{key}: kernel F never launched")
+        # the same quantized model on the plain product (a check: it
+        # launches no kernel F)
+        orig = L.quantized_matmul
+        L.quantized_matmul = Q.quantized_matmul_plain
+        try:
+            plain_prod, _, plain_rec = serve_counted(torch, model, cfg,
+                                                     reqs)
+            row["ids_vs_plain_product"] = compare_ids(
+                torch, "int8 weights, kernel F vs the plain product",
+                plain_rec, recs["bf16_cache"], ids_of(plain_prod),
+                ids_of(runs["bf16_cache"]))
+        finally:
+            L.quantized_matmul = orig
+        row["ids_equal_to_bf16_share"] = statistics.mean(
+            _equal_share(list(plain_run[u].ids), list(c.ids))
+            for u, c in runs["bf16_cache"].items())
+        text = next(r for r in reqs if r["uid"] == "text300")
+        _reset_p11()
+        t = time.perf_counter()
+        g = dec.greedy_decode(model, cfg, request_embeds(torch, model, cfg,
+                                                         text),
+                              max_new_tokens=DECODE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        row["greedy_decode"] = dict(tokens=int(g["steps"]), wall_s=wall,
+                                    tok_per_s=int(g["steps"]) / wall,
+                                    launches=_p11_counts())
+        if row["greedy_decode"]["launches"]["w8_matmul"] <= 0:
+            raise AssertionError("greedy_decode on int8 weights never "
+                                 "launched kernel F")
+        prof, _ = profile_ticks(model, cfg, ticks=2)
+        row["int8_profile"] = prof
+        row["tasks_int8"] = phase_eval_tasks(torch, dev, model, cfg, "int8")
+    finally:
+        model.llama = bf_llama
+    free_memory(torch)
+    keep = ("decode_step_ms", "decode_tok_per_s", "device_ms_per_step",
+            "device_busy_share", "kernel_launches_per_step")
+    for name in ("bf16_profile", "int8_profile"):
+        p = row[name]
+        row[name] = {**{k: p[k] for k in keep},
+                     "gemm_ms_per_step":
+                         p["device_ms_per_step_by_group"]["gemm"],
+                     "by_group": p["device_ms_per_step_by_group"]}
+    row["phase5_bf16"] = {k: main_row[k] for k in (
+        "tok_per_s_run1", "tok_per_s_run2", "peak_mem_gib")}
+    launches = {k: sum(r["launches"][k] for r in (
+        *(row[x] for x in ("bf16_cache", "bf16_cache_spec4", "int8_cache",
+                           "int8_cache_spec4")), row["greedy_decode"],
+        row["tasks_int8"])) for k in _p11_counts()}
+    row["launches"] = launches
+    log("int8 weights", json.dumps({k: v for k, v in row.items()
+                                    if k not in ("tasks_int8",)}))
+    return row
+
+
+def phase_prefix(torch, dev, model, cfg, reqs):
+    """11c: a 1,024-token shared prefix (seeded ids) with phase 5's prompts
+    as suffixes (the image keeps its image, suffix-relative) against the
+    plain engine given prefix + suffix; the admission tick's device ms with
+    and without the prefix; then kv_int8, spec_k=4 and the 1B-shaped
+    drafter on the prefix engine."""
+    import numpy as np
+
+    from metamorph_tpu_torch.convert import init_llama
+
+    prefix = np.random.default_rng(11).integers(
+        10, 128000, (PREFIX_LEN,)).astype(np.int32)
+    whole = []
+    for r in reqs:
+        w = dict(r, prompt_ids=np.concatenate([prefix, r["prompt_ids"]]))
+        if r.get("image_positions") is not None:
+            w["image_positions"] = np.asarray(r["image_positions"]) \
+                + PREFIX_LEN
+        whole.append(w)
+    row = {}
+    pref_run, row["prefix"], pref_rec = serve_counted(
+        torch, model, cfg, reqs, profile_first=True,
+        shared_prefix_ids=prefix)
+    plain, row["plain_whole_prompts"], plain_rec = serve_counted(
+        torch, model, cfg, whole, profile_first=True)
+    for k, r in (("prefix", row["prefix"]),
+                 ("plain_whole_prompts", row["plain_whole_prompts"])):
+        log(f"prefix: engine {k}", json.dumps(r))
+    lp = row["prefix"]["launches"]
+    if lp["chunk_fill"] <= 0 or lp["flash_fwd"] != cfg.llama.num_layers:
+        raise AssertionError(f"the prefix's one prefill (kernel A) and the "
+                             f"suffix chunks (kernel E's fill form) did not "
+                             f"run as they should: {lp}")
+    row["ids_vs_plain"] = compare_ids(
+        torch, "prefix vs plain engine on prefix + suffix", plain_rec,
+        pref_rec, ids_of(plain), ids_of(pref_run))
+    runs, recs = {}, {}
+    dcfg = drafter_1b_config()
+    draft = init_llama(dcfg, seed=1, device=dev, dtype=torch.bfloat16)
+    for key, kw in (("kv_int8", dict(kv_int8=True)),
+                    ("spec4", dict(spec_k=4)),
+                    ("draft4", dict(spec_k=4, draft=(draft, dcfg)))):
+        runs[key], row[key], recs[key] = serve_counted(
+            torch, model, cfg, reqs, shared_prefix_ids=prefix, **kw)
+        log(f"prefix: engine {key}", json.dumps(row[key]))
+    del draft
+    free_memory(torch)
+    for key in ("spec4", "draft4"):
+        row[f"ids_{key}"] = compare_ids(
+            torch, f"prefix {key} vs prefix", pref_rec, recs[key],
+            ids_of(pref_run), ids_of(runs[key]))
+    # the prefix's K/V and scales copied into each slot against the plain
+    # engine's own int8 writes of the whole prompt
+    plain8, row["plain_whole_prompts_kv_int8"], plain8_rec = serve_counted(
+        torch, model, cfg, whole, kv_int8=True)
+    row["ids_kv_int8"] = compare_ids(
+        torch, "prefix kv_int8 vs plain kv_int8", plain8_rec,
+        recs["kv_int8"], ids_of(plain8), ids_of(runs["kv_int8"]))
+    launches = {k: sum(row[x]["launches"][k] for x in (
+        "prefix", "kv_int8", "spec4", "draft4")) for k in _p11_counts()}
+    if launches["chunk_verify"] <= 0 or launches["decode_attn_int8"] <= 0:
+        raise AssertionError(f"prefix options did not launch kernel E's "
+                             f"verify form or B int8: {launches}")
+    row["launches"] = launches
+    log("prefix", json.dumps({k: row[k] for k in (
+        "ids_vs_plain", "ids_spec4", "ids_draft4", "ids_kv_int8",
+        "launches")}))
+    return row
+
+
+def phase_eval_tasks(torch, dev, model, cfg, tag):
+    """11d, `run_task`: 16 rows (8 with PNG images written here), metric
+    "exact", on `model` (bf16 or int8 weights) with `word_tokenize`; the
+    gold answers are `greedy_decode`'s on the same request alone. Both
+    runs are recorded (LogitRecorder) and compared by `compare_ids`; a row
+    may score below 1.0 only where its ids part from the gold's within the
+    logit difference measured between the two runs."""
+    import numpy as np
+    from PIL import Image
+
+    from metamorph_tpu_torch.constants import (IM_END_TOKEN_ID,
+                                               IM_START_TOKEN_ID,
+                                               LLAMA3_EOS_IDS)
+    from metamorph_tpu_torch.eval import runner
+    from metamorph_tpu_torch.inference import decode as dec
+    from metamorph_tpu_torch.inference.demo import load_frames
+
+    drop = set(LLAMA3_EOS_IDS) | {IM_START_TOKEN_ID, IM_END_TOKEN_ID}
+    rng = np.random.default_rng(12)
+    words = ["".join(rng.choice(list("abcdefghij"), 5)) for _ in range(200)]
+    detok = lambda ids: " ".join(map(str, ids))
+    with tempfile.TemporaryDirectory() as d:
+        rows = []
+        for i in range(EVAL_ROWS):
+            row = {"question": " ".join(rng.choice(words, 6 + i)),
+                   "uid": f"row{i}"}
+            if i < EVAL_IMAGE_ROWS:
+                path = os.path.join(d, f"img{i}.png")
+                Image.fromarray(rng.integers(0, 256, (240 + 8 * i, 320, 3),
+                                             dtype=np.uint8)).save(path)
+                row["image"] = path
+            rows.append(row)
+        frames_of = lambda row: load_frames(row["image"]) if row.get(
+            "image") else []
+        golds = {}
+        with LogitRecorder(torch) as gold_rec:
+            for i, row in enumerate(rows):
+                req = runner.build_request(model, cfg, word_tokenize,
+                                           row["question"], frames_of(row),
+                                           EVAL_NEW, row["uid"], 128000)
+                r = dict(prompt_ids=req.prompt_ids, uid=row["uid"])
+                if req.image_embeds is not None:
+                    r.update(image_embeds=req.image_embeds,
+                             image_positions=req.image_positions)
+                gold_rec.uid = i        # run_task's engine names row i `i`
+                g = dec.greedy_decode(model, cfg, request_embeds(
+                    torch, model, cfg, r), max_new_tokens=EVAL_NEW)
+                golds[i] = g["ids"][:int(g["n_ids"])].tolist()
+                row["answer"] = detok([t for t in golds[i] if t not in drop])
+        _reset_p11()
+        with LogitRecorder(torch) as task_rec:
+            res = runner.run_task(model, cfg, word_tokenize, detok, rows,
+                                  load_frames=frames_of, metric="exact",
+                                  n_slots=8, max_cache_len=4096,
+                                  max_new_tokens=EVAL_NEW,
+                                  bos_token_id=128000)
+            torch.cuda.synchronize()
+        counts = _p11_counts()
+    ids = compare_ids(torch, f"run_task ({tag} weights) vs single-request "
+                      f"greedy", gold_rec, task_rec, ref_ids=golds)
+    misses = {rows[i]["uid"]: ids[i] for i, p in
+              enumerate(res["predictions"]) if p["score"] != 1.0}
+    out = dict(weights=tag, accuracy=res["accuracy"], n=res["n"],
+               image_rows=EVAL_IMAGE_ROWS,
+               new_tokens_per_sec=res["new_tokens_per_sec"],
+               misses=misses, launches=counts)
+    log(f"eval run_task ({tag} weights)", json.dumps(out))
+    bad = {u: m for u, m in misses.items() if "diverge_at" not in m}
+    if bad or counts["flash_fwd"] <= 0 or (tag == "int8" and
+                                           counts["w8_matmul"] <= 0):
+        raise AssertionError(f"run_task ({tag}): rows scored below 1.0 "
+                             f"with the gold's ids {bad} or kernels not "
+                             f"launched {counts}")
+    return out
+
+
+def phase_evaluate(torch, model, cfg, batches):
+    """11d, `evaluate` over 8a's batches at 8B width (kernel A): a finite
+    perplexity, and the first batch's `loss_language` equal to what
+    `metamorph_forward` gives for it within 1e-3 relative."""
+    import numpy as np
+
+    from metamorph_tpu_torch.eval.perplexity import evaluate
+    from metamorph_tpu_torch.models.metamorph import metamorph_forward
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.ops import flash_attention as fa
+
+    dev = model.llama.embed.device
+    fa.FLASH_FWD.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = evaluate(model, cfg, batches)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = fa.FLASH_FWD.launches
+    one = evaluate(model, cfg, batches[:1])
+    packed, pixels = batches[0]
+    with torch.no_grad():
+        _, m = metamorph_forward(
+            model, cfg, {k: torch.as_tensor(np.asarray(v), device=dev)
+                         for k, v in batch_to_arrays(packed).items()},
+            torch.as_tensor(np.asarray(pixels), device=dev))
+    direct = float(m["loss_language"])
+    rel = abs(one["loss_language"] - direct) / abs(direct)
+    row = dict(res, wall_s=wall, s_per_batch=wall / len(batches),
+               launches={"flash_fwd": launches},
+               first_batch_loss_language=one["loss_language"],
+               metamorph_forward_loss_language=direct, rel_diff=rel)
+    log("eval evaluate", json.dumps(row))
+    if not (np.isfinite(res["perplexity"]) and rel <= 1e-3
+            and launches > 0):
+        raise AssertionError(f"evaluate: {row}")
+    return row
+
+
 def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                    options_rows, decode_row, train_row, recipe_row,
-                   weights_row) -> dict:
+                   weights_row, w8_rows, p11_launches) -> dict:
     """The summary line: one entry per kernel, its launches on the main
     paths (summed, and by path), its worst error, and its time, plain time,
     bound and library time at the main-path shape (kernels B and E also at
-    the 1B drafter's head dim 64, under "forms")."""
+    the 1B drafter's head dim 64, under "forms"; kernel F at its decode
+    shapes and one prefill shape)."""
     fl = kernel_rows["flash"][0]       # the main path's 2048-bucket shape
     de = kernel_rows["decode"][0]
     bw = bwd_rows[0]                   # causal T=4096, the train main path
@@ -2644,9 +3431,9 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
     ol = {k: r["launches"] for k, r in options_rows.items()}
     dl = decode_row["launches"]
 
-    def by_path(symbol, serve=0, decode=0, options=0):
+    def by_path(symbol, serve=0, decode=0, options=0, p11=0):
         paths = {"serve": serve, "serve_options": options,
-                 "decode_frontends": decode,
+                 "decode_frontends": decode, "int8_prefix_eval": p11,
                  "train_main": tl.get(symbol, 0),
                  "recipe_data_path": rl.get(symbol, 0),
                  "weights": wl.get(symbol, 0)}
@@ -2675,7 +3462,8 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                      "metamorph_tpu/ops/flash_attention.py:287",
          **by_path("mm_flash_fwd_bf16", main_row["launches"]["flash_fwd"],
                    dl["flash_fwd"],
-                   sum(ol[k]["mm_flash_fwd_bf16"]["total"] for k in ol)),
+                   sum(ol[k]["mm_flash_fwd_bf16"]["total"] for k in ol),
+                   p11_launches["flash_fwd"]),
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
          **timing(fl),
          "forms": {f"causal_T{r['T']}": timing(r)
@@ -2685,7 +3473,8 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
          "replaces": "metamorph_tpu/ops/decode_attention.py:191",
          **by_path("mm_decode_attn_bf16", main_row["launches"]["decode_attn"],
                    dl["decode_attn"],
-                   ol["bf16"]["mm_decode_attn_bf16"]["total"]),
+                   ol["bf16"]["mm_decode_attn_bf16"]["total"],
+                   p11_launches["decode_attn"]),
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["decode"]
                             + drafter_rows["decode"]),
          **timing(de),
@@ -2713,7 +3502,8 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                      "(int8 branch)",
          **by_path("mm_decode_attn_int8",
                    decode=dl["decode_attn_int8"],
-                   options=ol["int8"]["mm_decode_attn_int8"]["total"]),
+                   options=ol["int8"]["mm_decode_attn_int8"]["total"],
+                   p11=p11_launches["decode_attn_int8"]),
          "max_abs_err": max(r["max_abs_err"]
                             for r in opt_rows["decode_int8"]),
          **timing(d8)},
@@ -2734,10 +3524,34 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
             "replaces": f"metamorph_tpu/ops/decode_attention.py:{line}",
             **by_path(f"mm_chunk_attn_{form}", decode=dl[f"chunk_{form}"],
                       options=sum(ol[k][f"mm_chunk_attn_{k}"]["forms"].get(
-                          form, 0) for k in ("bf16", "int8"))),
+                          form, 0) for k in ("bf16", "int8")),
+                      p11=p11_launches[f"chunk_{form}"]),
             "max_abs_err": max(x["max_abs_err"] for x in opt_rows["chunk"]
                                + dh64 if x.get("form") == form),
             **timing(r), "forms": forms})
+    # kernel F: the main-path shape is the decode step's gate / up product
+    # (M = 8 rows, K = 4096, N = 14336); the bf16 matmul is a yardstick of
+    # another function, so library_ms stays null
+    f8 = next(r for r in w8_rows if (r["M"], r["K"], r["N"]) == (8, 4096,
+                                                                 14336))
+
+    def w8_timing(r):
+        return {k: r[k] for k in ("ms", "ms_method", "plain_ms", "bound_ms",
+                                  "bound_by", "bound_share", "library_ms",
+                                  "bf16_matmul_ms")}
+
+    summary["kernels"].append({
+        "name": "w8_matmul", "route": "cuda",
+        "source": "metamorph_tpu_torch/csrc/w8_matmul.cu",
+        "replaces": "metamorph_tpu/ops/quant.py:44 (quantized_matmul: no "
+                    "Pallas site, XLA:TPU's fused int8 convert + dot)",
+        **by_path("mm_w8_matmul", p11=p11_launches["w8_matmul"]),
+        "max_abs_err": max(r["max_abs_err"] for r in w8_rows),
+        "max_rel_err": max(r["rel_err"] for r in w8_rows),
+        **w8_timing(f8),
+        "bf16_matmul_note": f8["bf16_matmul_note"],
+        "forms": {f"M{r['M']}_K{r['K']}_N{r['N']}": w8_timing(r)
+                  for r in w8_rows}})
     return summary
 
 
@@ -2812,12 +3626,17 @@ def main() -> int:
     free_memory(torch)
     drafter_rows = phase_drafter_kernels(torch, dev)
     free_memory(torch)
+    w8_rows = phase_w8_kernels(torch, dev)
+    free_memory(torch)
     phase_reference(torch, dev)
     phase_reference_options(torch, dev)
     phase_train_reference(torch, dev)
     main_row, served = phase_main(torch, dev)
     options_rows = phase_serve_options(torch, dev, *served)
     decode_row = phase_decode_frontends(torch, dev, *served)
+    int8_row = phase_int8_weights(torch, dev, *served, main_row)
+    prefix_row = phase_prefix(torch, dev, *served[:3])
+    tasks_bf16 = phase_eval_tasks(torch, dev, *served[:2], "bf16")
     model, cfg5, reqs, plain_run = served
     del served
     # phase 9's files (~20 GB): in the temp dir, deleted whatever happens
@@ -2840,9 +3659,16 @@ def main() -> int:
     recipe_row = phase_recipe_main(torch, dev, train_row)
     phase_recipe_small(torch, dev)
 
+    p11 = {k: int8_row["launches"][k] + prefix_row["launches"][k]
+           + tasks_bf16["launches"][k] for k in int8_row["launches"]}
+    p11["flash_fwd"] += recipe_row["evaluate"]["launches"]["flash_fwd"]
+    for k in ("w8_matmul", "flash_fwd", "chunk_fill", "chunk_verify"):
+        if p11[k] <= 0:
+            raise AssertionError(f"phase 11 never launched {k}: {p11}")
+    log("int8, prefix and eval: launches", json.dumps(p11))
     summary = kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows,
                              main_row, options_rows, decode_row, train_row,
-                             recipe_row, weights_row)
+                             recipe_row, weights_row, w8_rows, p11)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps(summary))

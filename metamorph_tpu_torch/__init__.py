@@ -5,17 +5,21 @@ This package imports torch and never JAX. Its module names mirror the JAX
 package's, so `metamorph_tpu_torch/models/llama.py` is the counterpart of
 `metamorph_tpu/models/llama.py`. Ported so far: the serving path
 (`inference/serve.py`'s `ServeEngine`, with its int8 KV cache,
-prompt-lookup speculation and chunked fill), the training path
+prompt-lookup and draft-model speculation, chunked fill and a shared
+prefix; int8 weights from `ops/quant.py`; the decode entry points, the
+demo, the serve CLI and the HTTP server), the eval path
+(`eval/perplexity.py`, `eval/runner.py`), the training path
 (`train/trainer.py`'s `train()`, `train/train_step.py`) and the recipe's
 data path (`train/data.py`'s dataset and iterator over a conversation
 JSONL, with the templates, masking, anyres and the native packer, and the
 `train/main.py` CLI) and the weights slice (`utils/safetensors_io.py`,
 `models/hf_import.py`'s HF-layout import and export, `inference/loader.py`,
 `models/lora.py` with LoRA on every LLaMA path, the adapter, LoRA and
-HF-export saves of `train/checkpoint.py`, and `consolidate.py`), on five
+HF-export saves of `train/checkpoint.py`, and `consolidate.py`), on six
 hand-written CUDA C++ kernels under `csrc/`: the flash-attention forward
 and its dq and dk/dv backward (`ops/flash_attention.py`), decode attention
-over a bf16 or int8 cache, and chunk attention (`ops/decode_attention.py`).
+over a bf16 or int8 cache, chunk attention (`ops/decode_attention.py`),
+and the weight-only int8 product (`ops/quant.py`).
 Entry points run on the card unless the caller passes `device="cpu"`.
 
     from metamorph_tpu_torch.config import MetaMorphConfig

@@ -5,12 +5,15 @@
 gives it) across: the [L, ...]-stacked layer weights become per-layer
 module parameters, with every dense weight kept [D_in, D_out]. LoRA
 factors (`layers/<sub>/<w>_lora_a`, `_lora_b`) come across as the layers'
-optional factor parameters. `llama_from_jax_params` does the same for a
-bare LLaMA tree (`init_llama_params`, e.g. a drafter).
+optional factor parameters. A weight-only int8 leaf (`{int8_q [L, D_in,
+D_out], scale [L, 1, D_out]}`, what JAX's `quantize_llama_decode` makes)
+becomes a `QuantizedWeight` per layer, its int8 matrix transposed to
+[D_out, D_in] and both kept bit for bit. `llama_from_jax_params` does the
+same for a bare LLaMA tree (`init_llama_params`, e.g. a drafter).
 
-`to_jax_params` is the inverse: the module's weights (LoRA factors
-included) as the JAX tree of numpy arrays, so tests compare parameters
-leaf by leaf.
+`to_jax_params` is the inverse: the module's weights (LoRA factors and
+int8 leaves included) as the JAX tree of numpy arrays, so tests compare
+parameters leaf by leaf.
 
 `init_params` (and `init_llama`, for a bare LLaMA) makes random weights
 on the device from a seed, at the scales the JAX initializers use
@@ -33,6 +36,7 @@ from metamorph_tpu_torch.config import LlamaConfig, MetaMorphConfig
 from metamorph_tpu_torch.models.llama import Llama
 from metamorph_tpu_torch.models.lora import LORA_TARGETS
 from metamorph_tpu_torch.models.metamorph import MetaMorph
+from metamorph_tpu_torch.ops.quant import QUANT_KEY, QuantizedWeight
 
 # the parts `init_parts_` can fill, in the order it draws them
 PARTS = ("llama", "siglip", "projector", "vision_head", "siglip_mixer",
@@ -52,11 +56,41 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def _np(x) -> np.ndarray:
-    if isinstance(x, Mapping):
-        raise NotImplementedError(
-            "quantized weights are not ported to the PyTorch package yet "
-            "(the int8-weights slice)")
     return np.asarray(x).astype(np.float32)
+
+
+def _is_int8(leaf) -> bool:
+    return isinstance(leaf, Mapping) and QUANT_KEY in leaf
+
+
+def _int8_weight(leaf, l: Optional[int], device) -> QuantizedWeight:
+    """One [D_in, D_out] int8 leaf (layer l of a stacked one) as a
+    QuantizedWeight on `device`, bit for bit."""
+    q, scale = np.asarray(leaf[QUANT_KEY]), np.asarray(leaf["scale"])
+    if l is not None:
+        q, scale = q[l], scale[l]
+    if q.dtype != np.int8 or scale.dtype != np.float32:
+        raise ValueError(f"an int8 leaf holds int8_q {q.dtype} and scale "
+                         f"{scale.dtype}, want int8 and float32")
+    return QuantizedWeight(
+        torch.from_numpy(np.ascontiguousarray(q.T)).to(device),
+        torch.from_numpy(scale.reshape(-1).copy()).to(device))
+
+
+def _put_dense(module: nn.Module, name: str, leaf, l: Optional[int],
+               device) -> None:
+    """A dense weight into `module.<name>`: values into the parameter, or
+    an int8 leaf as a QuantizedWeight in its place."""
+    if not _is_int8(leaf):
+        _put(getattr(module, name), _np(leaf) if l is None else
+             _np(leaf)[l])
+        return
+    w = _int8_weight(leaf, l, device)
+    if w.shape != tuple(getattr(module, name).shape):
+        raise ValueError(f"{name}: int8 shape {w.shape} != "
+                         f"{tuple(getattr(module, name).shape)}")
+    delattr(module, name)
+    setattr(module, name, w)
 
 
 def _put(param: torch.Tensor, value) -> None:
@@ -78,13 +112,13 @@ def _fill_llama(llama: Llama, lt: Mapping[str, Any], device, dtype) -> None:
     _put(llama.embed, lt["embed"]["embedding"])
     _put(llama.final_norm, lt["final_norm"]["scale"])
     if llama.lm_head is not None:
-        _put(llama.lm_head, lt["lm_head"]["kernel"])
+        _put_dense(llama, "lm_head", lt["lm_head"]["kernel"], None, device)
     la = lt["layers"]
     for l, layer in enumerate(llama.layers):
         for name in ("wq", "wk", "wv", "wo"):
-            _put(getattr(layer, name), _np(la["attn"][name])[l])
+            _put_dense(layer, name, la["attn"][name], l, device)
         for name in ("w_gate", "w_up", "w_down"):
-            _put(getattr(layer, name), _np(la["mlp"][name])[l])
+            _put_dense(layer, name, la["mlp"][name], l, device)
         _put(layer.input_norm, _np(la["input_norm"]["scale"])[l])
         _put(layer.post_attn_norm, _np(la["post_attn_norm"]["scale"])[l])
     for sub, name in LORA_TARGETS:
@@ -163,14 +197,23 @@ def from_jax_params(tree: Mapping[str, Any], cfg: MetaMorphConfig,
 
 @torch.no_grad()
 def to_jax_params(model: MetaMorph) -> dict:
-    """MetaMorph module -> JAX parameter tree of fp32 numpy arrays, with
-    the per-layer weights stacked on a leading [L] axis."""
+    """MetaMorph module -> JAX parameter tree of fp32 numpy arrays (int8
+    weights as {int8_q, scale} int8 / fp32 leaves), with the per-layer
+    weights stacked on a leading [L] axis."""
 
     def a(p: torch.Tensor) -> np.ndarray:
         return p.detach().float().cpu().numpy()
 
-    def stack(layers, name: str) -> np.ndarray:
-        return np.stack([a(getattr(layer, name)) for layer in layers])
+    def int8(w: QuantizedWeight) -> dict:
+        return {QUANT_KEY: w.q.t().cpu().numpy(),
+                "scale": w.scale.cpu().numpy()[None]}
+
+    def stack(layers, name: str):
+        ws = [getattr(layer, name) for layer in layers]
+        if isinstance(ws[0], QuantizedWeight):
+            per = [int8(w) for w in ws]
+            return {k: np.stack([p[k] for p in per]) for k in per[0]}
+        return np.stack([a(w) for w in ws])
 
     lm = model.llama
     ll = lm.layers
@@ -185,7 +228,8 @@ def to_jax_params(model: MetaMorph) -> dict:
         "final_norm": {"scale": a(lm.final_norm)},
     }
     if lm.lm_head is not None:
-        llama["lm_head"] = {"kernel": a(lm.lm_head)}
+        llama["lm_head"] = {"kernel": int8(lm.lm_head) if isinstance(
+            lm.lm_head, QuantizedWeight) else a(lm.lm_head)}
     for sub, name in LORA_TARGETS:
         for key in (f"{name}_lora_a", f"{name}_lora_b"):
             if getattr(ll[0], key) is not None:

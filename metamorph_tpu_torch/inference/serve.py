@@ -21,6 +21,10 @@ positions (`cache_lens`) make the rows ragged in time. The pieces:
   * `_decode_fill_all*` / `_fill_core` (`fill_chunk > 0`): decode steps
     that each carry one `fill_chunk`-token piece of a long pending prompt
     into its slot, admitting the row on its last chunk;
+  * `_prefill_admit_prefixed` (`shared_prefix_ids`): the prefix's KV,
+    computed once when the engine is built, is copied into each admitted
+    row, and only the request's suffix runs, as batched chunk steps
+    (`decode_chunk_step_batched`) against the growing row;
   * `_advance_rows`: the per-row <image_start> / K continuous tokens /
     <image_end> state machine, shared by all of them;
   * `_snapshot`: one packed int32 array per tick, copied to the host
@@ -29,12 +33,10 @@ positions (`cache_lens`) make the rows ragged in time. The pieces:
 `kv_int8=True` keeps the cache in int8 with per-(token, kv head) scales.
 On CUDA tensors the prefill attention always runs kernel A (the flash
 forward), decode attention kernel B (bf16 or int8) and the verify and fill
-chunks kernel E; on CPU tensors all take their plain versions. Unlike the
-JAX engine there is no size rule that sends small shapes to a plain path
-on the device.
-
-Not ported yet (it raises NotImplementedError): the shared prefix
-(`shared_prefix_ids`).
+chunks kernel E (the shared prefix's suffix chunks too); a model from
+`ops/quant.quantize_llama_decode` runs every dense product on kernel F. On
+CPU tensors all take their plain versions. Unlike the JAX engine there is
+no size rule that sends small shapes to a plain path on the device.
 """
 
 from __future__ import annotations
@@ -493,6 +495,21 @@ def _admit_reset_slots(state: ServeState, slots: torch.Tensor,
     return state
 
 
+def _first_transition(model, state: ServeState, cfg: MetaMorphConfig,
+                      slots: torch.Tensor, h_last_rows: torch.Tensor,
+                      eos_ids: torch.Tensor, sampling: bool = False,
+                      generator: Optional[torch.Generator] = None) -> None:
+    """The admitted rows' first state-machine transition, from each
+    prompt's last hidden state h_last_rows [n, D] (in place)."""
+    B = state.cache_lens.shape[0]
+    h = h_last_rows.new_zeros((B, h_last_rows.shape[-1]))
+    h[slots] = h_last_rows
+    fresh = torch.zeros((B,), dtype=torch.bool, device=h.device)
+    fresh[slots] = True
+    _advance_rows(model, cfg, state, h, fresh, cfg.mm.num_image_tokens,
+                  eos_ids, sampling, generator)
+
+
 def _prefill_core(model, state: ServeState, cfg: MetaMorphConfig,
                   prompt_embeds: torch.Tensor,   # [n, T0b, D] right-padded
                   prompt_lens: torch.Tensor,     # [n] int32 (real lengths)
@@ -510,7 +527,6 @@ def _prefill_core(model, state: ServeState, cfg: MetaMorphConfig,
     prefills over the same ids into its slot rows; embeds-path rows start
     its count at 0 and let the draft tick's catch-up sync on generated
     ids."""
-    K = cfg.mm.num_image_tokens
     n, T0b = prompt_embeds.shape[:2]
     dev = prompt_embeds.device
     pos = torch.arange(T0b, device=dev)[None].expand(n, T0b)
@@ -535,13 +551,8 @@ def _prefill_core(model, state: ServeState, cfg: MetaMorphConfig,
 
     h_last_rows = h_all[torch.arange(n, device=dev),
                         prompt_lens.long() - 1]                  # [n, D]
-    B = state.cache_lens.shape[0]
-    h = h_all.new_zeros((B, h_all.shape[-1]))
-    h[slots] = h_last_rows
-    fresh = torch.zeros((B,), dtype=torch.bool, device=dev)
-    fresh[slots] = True
-    _advance_rows(model, cfg, state, h, fresh, K, eos_ids, sampling,
-                  generator)
+    _first_transition(model, state, cfg, slots, h_last_rows, eos_ids,
+                      sampling, generator)
     return state
 
 
@@ -564,6 +575,73 @@ def _prefill_admit_ids(model, state, cfg, ids, img, img_pos, prompt_lens,
     return _prefill_core(model, state, cfg, pe, prompt_lens, slots, max_new,
                          temps, top_ps, eos_ids, sampling, generator,
                          prompt_token_ids=ids, draft=draft)
+
+
+def _prefill_admit_prefixed(model, state: ServeState, cfg: MetaMorphConfig,
+                            prefix_cache: Dict[str, torch.Tensor],
+                            prefix_ids: torch.Tensor,  # [P] int32
+                            suffix_ids: torch.Tensor,  # [n, T0b] int32
+                            img, img_pos,              # | None
+                            suffix_lens: torch.Tensor,  # [n] int32
+                            slots: torch.Tensor,       # [n] int64
+                            max_new, temps, top_ps, eos_ids,
+                            sampling: bool = False, generator=None,
+                            draft=None) -> ServeState:
+    """Shared-prefix admission: the prefix's KV (`prefix_cache`, [L, 1, KV,
+    P, Dh], computed once by the engine) is copied into each admitted row
+    of the engine's cache, and only the suffixes run through the model, as
+    batched chunk steps of C = min(128, T0b) tokens (halved until it
+    divides T0b) at write_pos P + off, each attending to the prefix and the
+    earlier suffix chunks (kernel E on the card). Image positions are
+    suffix-relative. Junk K/V past a row's suffix end is overwritten by
+    generated tokens before its length reaches it. With a drafter, the
+    drafter prefills over the whole prompt. No host sync: the chunks'
+    offsets are Python ints and each row's last hidden state is picked on
+    the device."""
+    n, T0b = suffix_ids.shape
+    P = prefix_ids.shape[0]
+    dev = suffix_ids.device
+    full_lens = P + suffix_lens
+    for name, pc in prefix_cache.items():
+        state.cache[name][:, slots, :, :P] = pc
+    pe = _embed_splice(model, cfg, suffix_ids, img, img_pos,
+                       state.next_embed.dtype)
+    C = min(128, T0b)
+    while T0b % C:          # a top bucket that is not a power of two
+        C //= 2
+    ar = torch.arange(C, device=dev)
+    rows_n = torch.arange(n, device=dev)
+    h_last = pe.new_zeros((n, pe.shape[-1]))
+    for off in range(0, T0b, C):
+        write_pos = torch.full((n,), P + off, dtype=torch.int32, device=dev)
+        h, _ = llama_lib.decode_chunk_step_batched(
+            model.llama, cfg.llama, pe[:, off:off + C],
+            (P + off + ar)[None].expand(n, C), write_pos, state.cache,
+            rows=slots)
+        li = suffix_lens.long() - 1 - off
+        take = (li >= 0) & (li < C)
+        picked = h[rows_n, li.clamp(0, C - 1)]
+        h_last = torch.where(take[:, None], picked, h_last)
+
+    # drafting source: prefix + suffix ids
+    state.ids_all[slots, :P] = prefix_ids[None].to(torch.int32)
+    state.ids_all[slots, P:P + T0b] = suffix_ids.to(torch.int32)
+    d_len = torch.zeros_like(suffix_lens)
+    if draft is not None:
+        # the drafter is small: it prefills over the whole prompt (a prefix
+        # cache of its own is not worth the plumbing)
+        full_ids = torch.cat([prefix_ids[None].expand(n, P).to(torch.int32),
+                              suffix_ids.to(torch.int32)], dim=1)
+        pos = torch.arange(P + T0b, device=dev)[None].expand(n, P + T0b)
+        llama_lib.prefill(draft[0], draft[1],
+                          _draft_embed(draft[0], full_ids.clamp_min(0)), pos,
+                          None, state.d_cache, rows=slots)
+        d_len = full_lens
+    _admit_reset_slots(state, slots, full_lens, max_new, temps, top_ps,
+                       full_lens, d_len)
+    _first_transition(model, state, cfg, slots, h_last, eos_ids, sampling,
+                      generator)
+    return state
 
 
 @dataclass
@@ -601,12 +679,6 @@ class Completed:
     serve_s: float = 0.0             # admitted -> harvested (incl. prefill)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (see the port "
-        f"queue in ROADMAP.md)")
-
-
 class ServeEngine:
     """Host-side continuous-batching scheduler over the slot state.
 
@@ -622,7 +694,10 @@ class ServeEngine:
     module sharing the vocabulary, on the model's device), `fill_chunk > 0`
     chunked fill of long prompts while slots decode (up to `max_fills` at
     once; 0 when it does not divide `max_cache_len`), `kv_int8` the int8
-    KV cache."""
+    KV cache, `shared_prefix_ids` a prefix (a system prompt) whose KV is
+    computed once here: requests then carry only their suffix ids (image
+    positions relative to the suffix), and chunked fill and the embeds
+    transport are refused."""
 
     def __init__(self, model: mm_lib.MetaMorph, cfg: MetaMorphConfig,
                  n_slots: int = 8, max_cache_len: int = 2048,
@@ -634,8 +709,6 @@ class ServeEngine:
                  seed: int = 0, on_token=None, fill_chunk: int = 0,
                  max_fills: int = 2, kv_int8: bool = False, spec_k: int = 0,
                  draft=None, shared_prefix_ids=None):
-        if shared_prefix_ids is not None:
-            raise _not_ported("the shared prefix (shared_prefix_ids)")
         self.model, self.cfg = model, cfg
         self.n_slots, self.S = n_slots, max_cache_len
         self.device = model.llama.embed.device
@@ -696,6 +769,10 @@ class ServeEngine:
                 device=dev) if draft is not None else None),
             d_len=zeros(n_slots),
         )
+        self._prefix = None
+        if shared_prefix_ids is not None:
+            self._prefix = self._build_prefix(shared_prefix_ids, kv_int8,
+                                              fill_chunk)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(seed)
         # flips True the first time a sampling request is admitted; greedy
@@ -746,6 +823,47 @@ class ServeEngine:
         self.slot_queue_s: List[float] = [0.0] * n_slots
         self.completed: List[Completed] = []
 
+    @torch.no_grad()
+    def _build_prefix(self, shared_prefix_ids, kv_int8: bool,
+                      fill_chunk: int):
+        """The prefix's KV [L, 1, KV, P, Dh] (bf16, or int8 with scales
+        under kv_int8), from one prefill (kernel A on the card); and the
+        suffix buckets: the user's buckets that fit beside the prefix and
+        tile the admission chunks (multiples of 64, or powers of two below
+        128), topped by the room left, rounded down to a multiple of 64.
+        Returns (prefix ids, prefix cache)."""
+        if fill_chunk:
+            raise ValueError("fill_chunk (chunked prefill) is not supported "
+                             "on shared-prefix engines: the fill machinery "
+                             "is not prefix-aware")
+        dev = self.device
+        pids = torch.as_tensor(np.asarray(shared_prefix_ids, np.int32),
+                               device=dev)
+        P = int(pids.shape[0])
+        if P + 1 >= self.S:
+            raise ValueError("shared prefix leaves no room in the cache")
+        llama = self.model.llama
+        pc = llama_lib.init_kv_cache(self.cfg.llama, 1, P,
+                                     dtype=llama.embed.dtype, device=dev,
+                                     quantized=kv_int8)
+        llama_lib.prefill(llama, self.cfg.llama,
+                          llama_lib.embed_tokens(llama, pids[None]),
+                          torch.arange(P, device=dev)[None], None, pc)
+
+        def tiles(b):
+            return b % 64 == 0 or (b < 128 and b & (b - 1) == 0)
+
+        room = self.S - P
+        bks = [b for b in self.prefill_buckets if b <= room and tiles(b)]
+        top = room if tiles(room) else (room // 64) * 64
+        if top > 0 and (not bks or bks[-1] < top):
+            bks.append(top)
+        if not bks:
+            raise ValueError("shared prefix leaves no usable suffix bucket "
+                             "(cache too small)")
+        self.prefill_buckets = tuple(bks)
+        return pids, pc
+
     # -- scheduling ---------------------------------------------------------
 
     def submit(self, req: Request) -> None:
@@ -776,11 +894,17 @@ class ServeEngine:
                 raise ValueError("image_positions must give one splice start "
                                  "per image")
         t0 = req.prompt_len
+        P = 0
+        if self._prefix is not None:
+            if req.prompt_ids is None:
+                raise ValueError("shared-prefix engines require the "
+                                 "prompt_ids transport (suffix ids)")
+            P = self._prefix[0].shape[0]
         if t0 > self.prefill_buckets[-1]:
             raise ValueError(
                 f"prompt length {t0} exceeds largest bucket "
                 f"{self.prefill_buckets[-1]}")
-        if t0 + req.max_new_tokens > self.S:
+        if P + t0 + req.max_new_tokens > self.S:
             raise ValueError("prompt + generation exceed max_cache_len")
         if req.temperature < 0:
             raise ValueError("temperature must be >= 0 (0 = greedy)")
@@ -852,9 +976,15 @@ class ServeEngine:
                     pos_np[i, :ie.shape[0]] = np.asarray(req.image_positions,
                                                          np.int32)
                 img_pos = tensor(pos_np, torch.int32)
-            _prefill_admit_ids(self.model, self.state, self.cfg,
-                               tensor(ids, torch.int32), img, img_pos, lens,
-                               slot_t, *common, draft=self._draft)
+            if self._prefix is not None:
+                _prefill_admit_prefixed(
+                    self.model, self.state, self.cfg, self._prefix[1],
+                    self._prefix[0], tensor(ids, torch.int32), img, img_pos,
+                    lens, slot_t, *common, draft=self._draft)
+            else:
+                _prefill_admit_ids(self.model, self.state, self.cfg,
+                                   tensor(ids, torch.int32), img, img_pos,
+                                   lens, slot_t, *common, draft=self._draft)
         now = time.monotonic()
         for slot, req in zip(slots, reqs):
             self.slot_uid[slot] = req.uid

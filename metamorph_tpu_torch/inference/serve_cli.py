@@ -9,13 +9,14 @@ number of generated visual tokens and the step count.
     python -m metamorph_tpu_torch.inference.serve_cli --model-path CKPT \
         --tokenizer HF_TOKENIZER_DIR --requests reqs.jsonl \
         --out completions.jsonl [--n-slots 8] [--spec-k 4 [--draft-model
-        DIR]] [--kv-int8] [--device cuda]
+        DIR]] [--kv-int8] [--int8] [--device cuda]
 
-The flags are the JAX CLI's, plus `--device` (default `cuda`). `--int8`
-(weight-only int8 decode) is not ported: it raises. `main` loads the
-checkpoint, the tokenizer (`transformers`, imported there) and the drafter
-(in the model's dtype); the work is `run`, which takes the rows, a
-`tokenize(str) -> ids` and a `decode(ids) -> str` callable and the BOS id.
+The flags are the JAX CLI's, plus `--device` (default `cuda`). `main` loads
+the checkpoint (with `--int8`, `ops/quant.quantize_llama_decode` makes its
+decoder linears and lm head int8, run on kernel F), the tokenizer
+(`transformers`, imported there) and the drafter (in the model's dtype);
+the work is `run`, which takes the rows, a `tokenize(str) -> ids` and a
+`decode(ids) -> str` callable and the BOS id.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def parse_args(argv=None):
     p.add_argument("--max-new-tokens", type=int, default=256,
                    help="default per-request budget (rows may override)")
     p.add_argument("--int8", action="store_true",
-                   help="weight-only int8 decode: not ported (raises)")
+                   help="weight-only int8 decode (kernel F)")
     p.add_argument("--spec-k", type=int, default=0,
                    help=">1 enables speculative decoding for greedy rows "
                         "(prompt-lookup drafts, exact verification)")
@@ -157,21 +158,28 @@ def run(model, cfg, rows: List[Dict], tokenize: Callable[[str], List[int]],
     return out
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 (weight-only int8 decode) is not ported to the PyTorch "
-            "package yet: ROADMAP Queue 1 item 3, int8 weights")
-
+def load_model(args):
+    """The checkpoint of `args.model_path` on `args.device`, its decoder
+    linears and lm head made int8 with `--int8`. Returns (model, cfg)."""
     from metamorph_tpu_torch.convert import resolve_device
-    from metamorph_tpu_torch.inference.demo import load_hf_tokenizer
     from metamorph_tpu_torch.inference.loader import load_pretrained_model
 
-    device = resolve_device(args.device)
     model, cfg = load_pretrained_model(args.model_path,
                                        hf_siglip_path=args.siglip,
-                                       device=device)
+                                       device=resolve_device(args.device))
+    if args.int8:
+        from metamorph_tpu_torch.ops.quant import quantize_llama_decode
+
+        model.llama = quantize_llama_decode(model.llama, consume=True)
+    return model, cfg
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    from metamorph_tpu_torch.inference.demo import load_hf_tokenizer
+
+    model, cfg = load_model(args)
     tok = load_hf_tokenizer(args.tokenizer, "the serve CLI")
     rows = [json.loads(line) for line in open(args.requests) if line.strip()]
     done = run(model, cfg, rows, lambda s: tok(s).input_ids,

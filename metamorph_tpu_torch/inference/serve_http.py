@@ -18,10 +18,14 @@ engine's `on_token` callback.
 
     python -m metamorph_tpu_torch.inference.serve_http --model-path CKPT \
         --tokenizer HF_TOKENIZER_DIR [--port 8000] [--spec-k 4
-        [--draft-model DIR]] [--device cuda]
+        [--draft-model DIR]] [--int8] [--system-prompt TEXT] [--device cuda]
 
-The flags are the JAX CLI's, plus `--device`; `--int8` and
-`--system-prompt` (the shared prefix) are not ported and raise.
+The flags are the JAX CLI's, plus `--device`. `--int8` serves int8
+decoder linears and lm head (kernel F); `--system-prompt` encodes the text
+with the tokenizer's special tokens as the engine's shared prefix, whose
+KV is computed once, and then encodes each request's prompt WITHOUT
+special tokens: a request is the prefix's suffix, and a BOS spliced in at
+position P would diverge from the same prompt served whole.
 """
 
 from __future__ import annotations
@@ -261,12 +265,14 @@ def parse_args(argv=None):
     p.add_argument("--max-cache-len", type=int, default=4096)
     p.add_argument("--max-new-tokens", type=int, default=512)
     p.add_argument("--int8", action="store_true",
-                   help="weight-only int8 decode: not ported (raises)")
+                   help="weight-only int8 decode (kernel F)")
     p.add_argument("--kv-int8", action="store_true")
     p.add_argument("--spec-k", type=int, default=0)
     p.add_argument("--draft-model", default=None)
     p.add_argument("--system-prompt", default=None,
-                   help="shared-prefix KV reuse: not ported (raises)")
+                   help="fixed prefix text: its KV is computed once and "
+                        "reused for every request (requests then carry "
+                        "only their own prompt)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
@@ -275,13 +281,16 @@ def parse_args(argv=None):
 
 def build_server(model, cfg, encode: Callable[[str], list],
                  decode: Callable[[list], str], args,
-                 draft=None) -> MetaMorphHTTPServer:
+                 draft=None, prefix_ids=None) -> MetaMorphHTTPServer:
     """The engine the CLI flags in `args` describe, on the model's device,
-    behind a (not yet started) server."""
+    behind a (not yet started) server. `prefix_ids` (the encoded system
+    prompt) becomes the engine's shared prefix; `encode` must then give
+    the requests' suffix ids (no special tokens)."""
     eng = ServeEngine(model, cfg, n_slots=args.n_slots,
                       max_cache_len=args.max_cache_len,
                       max_new_tokens_cap=args.max_new_tokens, seed=args.seed,
-                      kv_int8=args.kv_int8, spec_k=args.spec_k, draft=draft)
+                      kv_int8=args.kv_int8, spec_k=args.spec_k, draft=draft,
+                      shared_prefix_ids=prefix_ids)
     return MetaMorphHTTPServer(eng, host=args.host, port=args.port,
                                encode=encode, decode=decode,
                                default_max_new=args.max_new_tokens)
@@ -293,28 +302,22 @@ def main(argv=None, block: bool = True):
     import sys
 
     args = parse_args(argv)
-    for flag, what, item in (
-            ("int8", "--int8 (weight-only int8 decode)", "3, int8 weights"),
-            ("system_prompt", "--system-prompt (the shared prefix)",
-             "3, the shared prefix")):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch package yet: ROADMAP "
-                f"Queue 1 item {item}")
 
-    from metamorph_tpu_torch.convert import resolve_device
     from metamorph_tpu_torch.inference.demo import load_hf_tokenizer
-    from metamorph_tpu_torch.inference.loader import load_pretrained_model
-    from metamorph_tpu_torch.inference.serve_cli import _load_draft
+    from metamorph_tpu_torch.inference.serve_cli import _load_draft, load_model
 
-    device = resolve_device(args.device)
-    model, cfg = load_pretrained_model(args.model_path,
-                                       hf_siglip_path=args.siglip,
-                                       device=device)
+    model, cfg = load_model(args)
     tok = load_hf_tokenizer(args.tokenizer, "the HTTP server")
-    srv = build_server(model, cfg, lambda s: tok(s).input_ids,
+    prefix = None
+    if args.system_prompt:
+        prefix = np.asarray(tok(args.system_prompt).input_ids, np.int32)
+        encode = lambda s: tok(s, add_special_tokens=False).input_ids
+    else:
+        encode = lambda s: tok(s).input_ids
+    srv = build_server(model, cfg, encode,
                        lambda ids: tok.decode(ids, skip_special_tokens=True),
-                       args, draft=_load_draft(args, model))
+                       args, draft=_load_draft(args, model),
+                       prefix_ids=prefix)
     srv.start()
     print(f"serving on http://{args.host}:{srv.port}", file=sys.stderr)
     if block:

@@ -12,7 +12,10 @@ single-token steps and through chunk attention (the same module) for the
 speculative verify chunks (`decode_chunk_step` of one cache row,
 `decode_chunk_step_batched` of every row) and the fused
 decode + prompt-chunk step of chunked fill (`decode_step_with_chunk`); each
-runs its CUDA kernels on the card and its plain version on the CPU. The
+runs its CUDA kernels on the card and its plain version on the CPU. A
+decoder linear or the lm head may be a `QuantizedWeight` (int8, from
+`ops/quant.quantize_llama_decode`, for serving): every path then runs its
+products on kernel F. The
 layer loop is a Python loop; training checkpoints each layer with
 `torch.utils.checkpoint` under the JAX package's remat policies. The KV
 cache [L, B, KV, S, Dh] (bf16, or int8 with fp32 scales [L, B, KV, S]) is
@@ -38,7 +41,8 @@ from metamorph_tpu_torch.ops.decode_attention import (chunk_attention,
                                                       chunk_attention_batched,
                                                       decode_attention)
 from metamorph_tpu_torch.ops.flash_attention import flash_attention
-from metamorph_tpu_torch.ops.quant import quantize_kv
+from metamorph_tpu_torch.ops.quant import (QuantizedWeight, quantize_kv,
+                                           quantized_matmul)
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -140,10 +144,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 
 def _dense(layer: LlamaLayer, name: str, x, cfg: LlamaConfig):
-    """x @ w, plus the LoRA path ((x @ a) @ b) * alpha / r when the layer
-    carries factors and the config enables them (lora_r > 0), as the JAX
-    package's `_lora_dense` gates it."""
-    out = x @ getattr(layer, name)
+    """x @ w (kernel F's `quantized_matmul` when w is a `QuantizedWeight`,
+    after `ops/quant.quantize_llama_decode`), plus the LoRA path
+    ((x @ a) @ b) * alpha / r when the layer carries factors and the config
+    enables them (lora_r > 0), as the JAX package's `_lora_dense` gates
+    it."""
+    w = getattr(layer, name)
+    out = (quantized_matmul(x, w) if isinstance(w, QuantizedWeight)
+           else x @ w)
     a = getattr(layer, f"{name}_lora_a")
     if a is not None and cfg.lora_r > 0:
         scale = cfg.lora_alpha / cfg.lora_r
@@ -284,8 +292,13 @@ def llama_forward(model: Llama, cfg: LlamaConfig,
 
 def lm_head(model: Llama, cfg: LlamaConfig, hidden: torch.Tensor
             ) -> torch.Tensor:
-    w = model.embed.T if cfg.tie_word_embeddings else model.lm_head
-    return (hidden @ w).float()
+    """fp32 logits. A quantized head (`quantize_llama_decode`) gives its
+    product rounded to the activations' dtype first, as in JAX."""
+    if cfg.tie_word_embeddings:
+        return (hidden @ model.embed.T).float()
+    if isinstance(model.lm_head, QuantizedWeight):
+        return quantized_matmul(hidden, model.lm_head).float()
+    return (hidden @ model.lm_head).float()
 
 
 # ---------------------------------------------------------------------------
@@ -416,16 +429,19 @@ def decode_chunk_step(model: Llama, cfg: LlamaConfig, xc: torch.Tensor,
 def decode_chunk_step_batched(model: Llama, cfg: LlamaConfig,
                               xc: torch.Tensor, rope_pos: torch.Tensor,
                               write_pos: torch.Tensor,
-                              cache: Dict[str, torch.Tensor]):
+                              cache: Dict[str, torch.Tensor],
+                              rows: Optional[torch.Tensor] = None):
     """Batched speculative-verification step: run C token embeddings per
     row (`xc [B, C, D]`) at RoPE positions `rope_pos [B, C]`, writing each
     row's C K/V entries at the contiguous slots starting `write_pos [B]`
     (ragged rows); chunk token c of row b attends to row b's keys
     j <= write_pos[b] + c (`chunk_attention_batched`, kernel E on the
     card). Rows are unpadded (the JAX function's `starts` are 0, the
-    serving layout). Entries past a row's accepted point are stale but
-    harmless: the mask excludes them and the next chunk overwrites them.
-    Returns (h [B, C, D], cache)."""
+    serving layout). Row b lives in cache row `rows[b]` (default b: the
+    cache has B rows; the shared-prefix admission passes the admitted
+    slots of the engine's cache). Entries past a row's accepted point are
+    stale but harmless: the mask excludes them and the next chunk
+    overwrites them. Returns (h [B, C, D], cache)."""
     B, C, _ = xc.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = cache["k"].device
@@ -434,11 +450,13 @@ def decode_chunk_step_batched(model: Llama, cfg: LlamaConfig,
     # as jax.lax.dynamic_update_slice: the start is clamped so the C
     # entries fit
     start = write_pos.long().clamp(0, S - C)
-    index = (torch.arange(B, device=dev)[:, None, None],
+    rows = (torch.arange(B, device=dev) if rows is None
+            else rows.to(device=dev, dtype=torch.long))
+    index = (rows[:, None, None],
              torch.arange(KV, device=dev)[None, :, None],
              (start[:, None] + torch.arange(C, device=dev))[:, None, :])
     offs = write_pos.to(torch.int32)
-    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    rows = rows.to(torch.int32)
     ks_all, vs_all = _scales(cache)
     x = xc
     for l, layer in enumerate(model.layers):

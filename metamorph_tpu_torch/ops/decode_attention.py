@@ -485,10 +485,10 @@ def chunk_attention_batched(q: torch.Tensor, k: torch.Tensor,
                             ) -> torch.Tensor:
     """Batched chunk attention (the JAX `chunk_attention_batched`, Pallas
     K7): q [B,C,H,Dh], row b's chunk against ITS cache row at ITS offset
-    offs[b] (int32 [B]); token c reads keys j <= offs[b] + c. Cache row ==
-    batch row (the serving layout: unpadded rows); `rows` is that identity,
-    int32 [B], which a caller that runs every layer builds once. Returns
-    [B,C,H,Dh]."""
+    offs[b] (int32 [B]); token c reads keys j <= offs[b] + c. Chunk b reads
+    cache row `rows[b]` (int32 [B], which a caller that runs every layer
+    builds once); None means the identity, cache row == batch row (the
+    serving layout: unpadded rows). Returns [B,C,H,Dh]."""
     if rows is None:
         rows = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)
     return _chunk(q, k, v, rows, offs, layer, scale, k_scale, v_scale,

@@ -26,6 +26,22 @@ def csrc(tmp_path, monkeypatch):
 def test_the_shipped_tree_has_a_shared_header():
     assert [p.name for p in _build.headers()] == ["sm90.cuh"]
     assert all(p.suffix == ".cu" for p in _build.sources())
+    assert "w8_matmul.cu" in [p.name for p in _build.sources()]
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in _build.CSRC.glob("*.cu*")))
+def test_sources_include_no_pytorch_header(name):
+    """Every kernel source (kernel F's `w8_matmul.cu` among them) has a
+    plain C interface and includes only CUDA's headers and the shared
+    ones, which keeps nvcc at seconds."""
+    import re
+
+    text = (_build.CSRC / name).read_text()
+    includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', text)
+    assert includes
+    assert not [i for i in includes
+                if i.split("/")[0] in ("torch", "ATen", "c10", "pybind11")]
 
 
 @pytest.mark.parametrize("change", ["edit_header", "edit_source",
@@ -106,7 +122,10 @@ def test_shared_memory_opt_in_is_per_device():
     assert body.index("cudaGetDevice(") < body.index("cudaFuncSetAttribute(")
     for name, t in text.items():
         launches = re.findall(r"<<<[^>]*>>>", t)
-        shared = [x for x in launches if x.count(",") >= 2]
+        # a launch naming dynamic shared memory (a third argument that is
+        # not the literal 0)
+        shared = [x for x in launches if x.count(",") >= 2
+                  and not re.search(r"<<<[^,]*,[^,]*,\s*0\s*,", x)]
         assert all(re.search(r",\s*bytes\s*,", x) for x in shared), name
         assert t.count("smem_opt_in<") == len(shared), name
     assert sum(t.count("smem_opt_in<") for t in text.values()) == 7

@@ -828,3 +828,162 @@ def test_single_row_chunk_step_on_card_matches_cpu(dev, quant):
         cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min()
         assert torch.isfinite(a).all() and cos >= (0.995 if quant else 0.999)
     assert kern.forms == {"verify": 2, "fill": 2} and kern.launches == 4
+
+
+# ---- kernel F: the weight-only int8 product ---------------------------------
+
+W8_TOL = 4e-3   # max|err| / max|ref| of a bf16 output against fp32 sums of
+                # the same bf16 x and int8 weights: one bf16 rounding of the
+                # output (2**-9 relative) plus fp32 sums in another order
+
+
+@pytest.mark.parametrize("M", [1, 8, 13, 17, 32, 264, 4096])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (4144, 1000)])
+def test_w8_matmul_kernel_matches_plain(dev, M, K, N):
+    """Both forms (gemv for M <= 32, with k splits; tiled beyond), ragged
+    K (not a multiple of the 64-deep step) and N (not a multiple of a
+    tile): against the plain version in fp32, and bitwise on a repeat."""
+    from metamorph_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    wq = Q.quantize_weight(torch.randn((K, N), generator=gen, device=dev)
+                           * K ** -0.5)
+    x = _randn(gen, dev, M, K)
+    Q.W8_MATMUL.reset()
+    out = Q.quantized_matmul(x, wq)
+    again = Q.quantized_matmul(x, wq)
+    torch.cuda.synchronize()
+    form = "gemv" if M <= 32 else "tiled"
+    assert Q.W8_MATMUL.launches == 2 and Q.W8_MATMUL.forms == {form: 2}
+    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
+    ref = Q.quantized_matmul_plain(x.float(), wq)
+    err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+    assert err <= W8_TOL
+    assert torch.equal(out, again)
+
+
+def test_w8_matmul_takes_leading_dims(dev):
+    from metamorph_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    wq = Q.quantize_weight(torch.randn((256, 384), generator=gen,
+                                       device=dev))
+    x = _randn(gen, dev, 2, 3, 256)
+    out = Q.quantized_matmul(x, wq)
+    assert out.shape == (2, 3, 384)
+    assert torch.equal(out.reshape(6, 384),
+                       Q.quantized_matmul(x.reshape(6, 256), wq))
+
+
+def test_w8_plans_follow_rows_and_storage(dev):
+    """Kernel F's launch arguments are worked out once per (rows, depth,
+    device, storage) of a weight: a second row count gets its own plan,
+    and a weight whose buffers are replaced is planned again against the
+    new storage (never launched on the old pointers)."""
+    from metamorph_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    wq = Q.quantize_weight(torch.randn((512, 320), generator=gen,
+                                       device=dev))
+    x8, x300 = _randn(gen, dev, 8, 512), _randn(gen, dev, 300, 512)
+    for x in (x8, x300, x8):
+        ref = Q.quantized_matmul_plain(x.float(), wq)
+        err = ((Q.quantized_matmul(x, wq).float() - ref).abs().max()
+               / ref.abs().max()).item()
+        assert err <= W8_TOL
+    assert len(wq.plans) == 2
+    wq.q = wq.q.clone()
+    wq.scale = wq.scale * 2
+    ref = Q.quantized_matmul_plain(x8.float(), wq)
+    out = Q.quantized_matmul(x8, wq)
+    assert len(wq.plans) == 3
+    assert ((out.float() - ref).abs().max() / ref.abs().max()).item() \
+        <= W8_TOL
+
+
+def test_quantize_consume_keeps_the_peak_near_the_bf16_model(dev):
+    """`quantize_llama_decode(consume=True)` drops each bf16 weight once it
+    is quantized: the peak stays within one weight's fp32 temporaries of
+    the bf16 model, where keeping the source adds the whole int8 model."""
+    from metamorph_tpu_torch.config import LlamaConfig
+    from metamorph_tpu_torch.convert import init_llama
+    from metamorph_tpu_torch.ops import quant as Q
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=256,
+                      intermediate_size=1024, num_layers=16, num_heads=4,
+                      num_kv_heads=2, head_dim=64, tie_word_embeddings=False)
+    peaks = {}
+    for consume in (False, True):
+        src = init_llama(cfg, seed=3, device=dev, dtype=torch.bfloat16)
+        n_max = max(p.numel() for p in src.parameters())
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = Q.quantize_llama_decode(src, consume=consume)
+        torch.cuda.synchronize()
+        peaks[consume] = torch.cuda.max_memory_allocated() - start
+        int8 = sum(m.q.numel() for m in out.modules()
+                   if isinstance(m, Q.QuantizedWeight))
+        assert (src.layers[3].w_up is None) == consume
+        assert (src.lm_head is None) == consume
+        del src, out
+    assert peaks[False] >= int8
+    assert peaks[True] <= 16 * n_max < int8
+
+
+def test_w8_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from metamorph_tpu_torch.ops import quant as Q
+
+    wq = Q.quantize_weight(torch.randn(64, 48, device=dev))
+    Q.W8_MATMUL.reset()
+    with pytest.raises(ValueError, match="bf16"):
+        Q.quantized_matmul(torch.randn(2, 64, device=dev), wq)
+    with pytest.raises(ValueError, match="does not match"):
+        Q.quantized_matmul(torch.randn(2, 32, device=dev).bfloat16(), wq)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        Q.quantized_matmul(torch.randn(2, 40, device=dev).bfloat16(),
+                           Q.quantize_weight(torch.randn(40, 48,
+                                                         device=dev)))
+    assert Q.W8_MATMUL.launches == 0
+
+
+def test_int8_model_on_card_matches_cpu(dev):
+    """A small LLaMA quantized for serving: prefill and a decode step on
+    the card (every dense product on kernel F) against the same model
+    quantized on the CPU in fp32 (plain products). The card quantizes its
+    bf16 weights, the CPU its fp32 ones, so a few int8 steps differ."""
+    from metamorph_tpu_torch.config import LlamaConfig
+    from metamorph_tpu_torch.convert import init_llama
+    from metamorph_tpu_torch.models import llama as L
+    from metamorph_tpu_torch.ops import quant as Q
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=256,
+                      intermediate_size=512, num_layers=2, num_heads=8,
+                      num_kv_heads=2, head_dim=64, tie_word_embeddings=False)
+    cpu = Q.quantize_llama_decode(init_llama(cfg, seed=3, device="cpu",
+                                             dtype=torch.float32))
+    gpu = Q.quantize_llama_decode(init_llama(
+        cfg, seed=3, device="cpu", dtype=torch.float32).to(
+        device=dev, dtype=torch.bfloat16))
+    ids = torch.randint(0, 1000, (2, 12),
+                        generator=torch.Generator().manual_seed(4))
+    logits = {}
+    Q.W8_MATMUL.reset()
+    with torch.no_grad():
+        for name, model, d in (("cpu", cpu, torch.device("cpu")),
+                               ("gpu", gpu, dev)):
+            cache = L.init_kv_cache(cfg, 2, 32, dtype=model.embed.dtype,
+                                    device=d)
+            L.prefill(model, cfg, L.embed_tokens(model, ids.to(d)),
+                      torch.arange(12, device=d)[None].expand(2, 12), None,
+                      cache)
+            idx = torch.full((2,), 12, dtype=torch.int32, device=d)
+            h, _ = L.decode_step(model, cfg, L.embed_tokens(
+                model, torch.tensor([[5], [9]], device=d)), idx[:, None],
+                cache, idx)
+            logits[name] = L.lm_head(model, cfg, h[:, 0]).float().cpu()
+    cos = torch.nn.functional.cosine_similarity(logits["gpu"],
+                                                logits["cpu"], dim=-1)
+    assert torch.isfinite(logits["gpu"]).all() and cos.min() >= 0.99
+    # 7 products per layer in the prefill and in the step, and the head
+    assert Q.W8_MATMUL.launches == 2 * 7 * 2 + 1

@@ -7,8 +7,8 @@ fp32 (each loader is wrapped to ask for float32; their CLIs load bf16),
 the tokenizer is the stub of tests/test_e2e_demo.py, and each CLI's
 `main` runs end to end: the same text and the same number of generated
 image tokens. The HTTP server answers on 127.0.0.1:0 (no network) with
-the ids JAX's server gives for the same greedy requests. The options
-that are not ported raise, and without a card the entry points raise
+the ids JAX's server gives for the same greedy requests. The visualizer
+option, not ported, raises, and without a card the entry points raise
 unless told `--device cpu`."""
 
 import json
@@ -174,7 +174,7 @@ def _requests_file(files, name="reqs.jsonl"):
 
 @pytest.mark.parametrize("extra", [[], ["--spec-k", "4"],
                                    ["--spec-k", "4", "--draft-model",
-                                    "{d}/draft"]])
+                                    "{d}/draft"], ["--int8"]])
 def test_serve_cli_main_matches_jax(files, fp32_and_fake_tokenizer, extra):
     reqs = _requests_file(files)
     outs = []
@@ -371,20 +371,19 @@ def test_http_main_serves_and_stops(files, fp32_and_fake_tokenizer):
 # ---- refusals ---------------------------------------------------------------
 
 def test_unported_options_raise(files, fp32_and_fake_tokenizer, jax_params):
+    """The visualizer is the one front-end option still unported. `--int8`
+    and `--system-prompt` run (tests/test_torch_quant.py,
+    tests/test_torch_prefix.py, the serve CLI case above); a shared prefix
+    refuses chunked fill, as in JAX."""
     common = ["--model-path", str(files / "model"), "--tokenizer", "fake",
               "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="item 7"):
         demo.main(common + ["--image", "none.png", "--visualizer", "v"])
-    for argv in (["--requests", "r", "--out", "o", "--int8"],):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            serve_cli.main(common + argv)
-    for argv in (["--int8"], ["--system-prompt", "You are terse."]):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            serve_http.main(common + argv, block=False)
     model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
                             device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServeEngine(model, CFG, shared_prefix_ids=[1, 2, 3], **ENGINE)
+    with pytest.raises(ValueError, match="fill_chunk"):
+        ServeEngine(model, CFG, shared_prefix_ids=[1, 2, 3], fill_chunk=8,
+                    **ENGINE)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs a machine "

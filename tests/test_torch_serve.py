@@ -103,10 +103,16 @@ def test_port_engine_matches_jax_engine(jax_params, variant):
 def test_port_engine_rejects_unported_options(jax_params):
     model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
                             device="cpu")
-    for kw in (dict(shared_prefix_ids=[1, 2, 3]),
-               dict(kv_int8=True, shared_prefix_ids=[1, 2, 3])):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(model, CFG, **ENGINE, **kw)
+    # the shared prefix is ported (tests/test_torch_prefix.py); as in JAX
+    # it refuses chunked fill, and its requests must carry ids
+    with pytest.raises(ValueError, match="fill_chunk"):
+        ServeEngine(model, CFG, **ENGINE, fill_chunk=8,
+                    shared_prefix_ids=[1, 2, 3])
+    pref = ServeEngine(model, CFG, **ENGINE, kv_int8=True,
+                       shared_prefix_ids=[1, 2, 3])
+    with pytest.raises(ValueError, match="prompt_ids"):
+        pref.submit(Request(prompt_embeds=np.zeros((4, 64), np.float32),
+                            max_new_tokens=4))
     # draft models are ported (tests/test_torch_spec.py); as in JAX, a
     # drafter needs speculation on
     with pytest.raises(ValueError, match="spec_k"):
