@@ -137,17 +137,21 @@ Phases (any failure raises and the script exits nonzero):
   11. int8 weights, the shared prefix and eval — 11a (after 10b) kernel
                F (`csrc/w8_matmul.cu`) against its plain version at M = 8
                and 32 rows on the 8B decode shapes (wq/wo, wk/wv, gate/up,
-               down, the lm head) and M = 4096 on the MLP's up shape:
-               relative error, bitwise repeats, device ms, bound, the plain
-               version's time and, as a yardstick only, `torch.matmul` on
-               the bf16 weight; on phase 5's model (after 10): 11b
+               down, the lm head; the gemv form) and M = 264 and 4096 on
+               the four layer shapes (the tiled form): relative error,
+               bitwise repeats, device ms, bound, the plain version's time,
+               `torch._weight_int8pack_mm` (bf16 scales) where PyTorch has
+               a CUDA kernel for it, and, as a yardstick only,
+               `torch.matmul` on the bf16 weight; on phase 5's model
+               (after 10): 11b
                `quantize_llama_decode`, the first-step logits' cosine to
                the bf16 model per request (>= 0.99), phase 5's requests
                through the engine on int8 weights with the bf16 and the
                int8 cache, plain and spec_k=4, their ids against the same
                int8 model on the plain product, one `greedy_decode`,
                decode ticks profiled on both models (device and GEMM ms
-               per step); 11c a 1,024-token shared prefix with phase 5's
+               per step), the admission tick's GEMM and kernel F ms on
+               both models; 11c a 1,024-token shared prefix with phase 5's
                prompts as suffixes against the plain engine on prefix +
                suffix, the admission tick's device ms with and without it,
                then kv_int8 (against the plain engine's int8 cache),
@@ -2696,18 +2700,37 @@ def _p11_counts() -> dict:
             "chunk_fill": ch.forms.get("fill", 0) + ch8.forms.get("fill", 0)}
 
 
+def int8pack_mm_probe(torch, x, wq):
+    """`torch._weight_int8pack_mm(x, q, scale)` on the card, PyTorch's own
+    weight-only int8 product (its scale is bf16, not fp32): a callable, or
+    the reason it cannot run here."""
+    op = getattr(torch, "_weight_int8pack_mm", None)
+    if op is None:
+        return None, "torch._weight_int8pack_mm does not exist"
+    sc = wq.scale.to(torch.bfloat16)
+    try:
+        op(x, wq.q, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:   # no CUDA kernel
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return (lambda: op(x, wq.q, sc)), None
+
+
 def phase_w8_kernels(torch, dev):
     """11a: kernel F against its plain version at the 8B decode shapes (M =
-    8 and 32 rows) and one prefill shape (M = 4096), with its bound and,
-    as a yardstick only, `torch.matmul` on the bf16 weight of the same
-    shape (the product F replaces; not the same function)."""
+    8 and 32 rows, the gemv form) and the four layer shapes at M = 264 (the
+    fill step's 8 + 256 rows) and 4096 (the tiled form), with its bound,
+    `torch._weight_int8pack_mm` where it has a CUDA kernel (library_ms,
+    bf16 scales) and, as a yardstick only, `torch.matmul` on the bf16
+    weight of the same shape (the product F replaces; not the same
+    function)."""
     from metamorph_tpu_torch.ops import quant as Q
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1111)
     rows = []
     cases = [(M, kn) for M in (8, 32) for kn in W8_SHAPES]
-    cases.append((4096, (4096, 14336)))
+    cases += [(M, kn) for M in (264, 4096) for kn in W8_SHAPES[:4]]
     for M, (K, N) in cases:
         w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
         wq, wb = Q.quantize_weight(w), w.to(torch.bfloat16)
@@ -2718,18 +2741,24 @@ def phase_w8_kernels(torch, dev):
         ref = Q.quantized_matmul_plain(x.float(), wq)
         abs_err = (out.float() - ref).abs().max().item()
         rel_err = abs_err / ref.abs().max().item()
-        timer = cuda_graph_ms if M <= 32 else cuda_ms
+        timer = cuda_graph_ms if M <= Q.GEMV_MAX_M else cuda_ms
         b = bound(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * N * K)
         ms = timer(lambda: Q.quantized_matmul(x, wq))
-        row = dict(M=M, K=K, N=N, form="gemv" if M <= 32 else "tiled",
-                   splits=(Q.gemv_splits(K, N, torch.cuda.get_device_properties(
-                       dev).multi_processor_count) if M <= 32 else None),
+        (_, shape, form, _), = wq.plans.values()
+        lib, lib_note = int8pack_mm_probe(torch, x, wq)
+        row = dict(M=M, K=K, N=N, form=form, ctas=shape[4],
                    max_abs_err=abs_err, rel_err=rel_err, tol=W8_TOL,
                    bitwise_repeat=bool(torch.equal(out, again)),
-                   ms=ms, ms_method=("CUDA graph of 20 calls" if M <= 32
+                   ms=ms, ms_method=("CUDA graph of 20 calls"
+                                     if M <= Q.GEMV_MAX_M
                                      else "20 calls queued"),
                    plain_ms=cuda_ms(lambda: Q.quantized_matmul_plain(x, wq)),
-                   library_ms=None,
+                   # PyTorch's int8 product takes ~0.5 s a call at M = 4096
+                   library_ms=(None if lib is None else timer(lib)
+                               if M <= Q.GEMV_MAX_M
+                               else cuda_ms(lib, calls=2, reps=3)),
+                   library_note=("torch._weight_int8pack_mm, bf16 scales"
+                                 if lib else lib_note),
                    bf16_matmul_ms=timer(lambda: x @ wb),
                    bf16_matmul_note="torch.matmul on the bf16 weight: the "
                                     "product F replaces, timed as a "
@@ -2740,7 +2769,7 @@ def phase_w8_kernels(torch, dev):
             raise AssertionError(f"kernel F disagrees with its plain version "
                                  f"or does not repeat: {row}")
         rows.append(row)
-        del wq, wb, x, out, again, ref
+        del wq, wb, x, out, again, ref, lib
         torch.cuda.empty_cache()
     return rows
 
@@ -3111,6 +3140,23 @@ def host_cost(torch, model, cfg, bf_llama, q_llama) -> dict:
             "tok_per_s_median": {k: 8e3 / med(v) for k, v in wall.items()}}
 
 
+def first_tick(torch, model, cfg, reqs) -> dict:
+    """The admission tick of a fresh engine (8 slots, 4096-token cache) on
+    `reqs` (their prefills and one decode step) under the profiler: device
+    ms, GEMM ms (kernel F's among them) and kernel F's ms."""
+    from metamorph_tpu_torch.inference.profile_serve import _groups, _profiled
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+
+    eng = ServeEngine(model, cfg, n_slots=8, max_cache_len=4096)
+    for r in reqs:
+        eng.submit(Request(**r))
+    table, wall_ms = _profiled(eng.step)
+    del eng
+    return dict(device_ms=sum(r["ms"] for r in table), wall_ms=wall_ms,
+                gemm_ms=_groups(table, 1)["gemm"],
+                w8_ms=sum(r["ms"] for r in table if "w8_" in r["name"]))
+
+
 def phase_int8_weights(torch, dev, model, cfg, reqs, plain_run, main_row):
     """11b: `quantize_llama_decode` on phase 5's model; phase 5's requests
     through ServeEngine on int8 weights (bf16 and int8 cache, plain and
@@ -3127,7 +3173,8 @@ def phase_int8_weights(torch, dev, model, cfg, reqs, plain_run, main_row):
         return torch.stack([last_logits(torch, model, cfg, request_embeds(
             torch, model, cfg, r)) for r in reqs]).cpu()
 
-    row = {"bf16_profile": profile_ticks(model, cfg, ticks=2)[0]}
+    row = {"bf16_profile": profile_ticks(model, cfg, ticks=2)[0],
+           "bf16_first_tick": first_tick(torch, model, cfg, reqs)}
     logits_bf = first_logits()
     bf_llama = model.llama
     torch.cuda.synchronize()
@@ -3151,6 +3198,9 @@ def phase_int8_weights(torch, dev, model, cfg, reqs, plain_run, main_row):
         if cos.min().item() < W8_MIN_COS:
             raise AssertionError(f"int8 logits cosine {cos.tolist()} < "
                                  f"{W8_MIN_COS}")
+        row["int8_first_tick"] = first_tick(torch, model, cfg, reqs)
+        log("int8 weights: admission tick, bf16 then int8",
+            json.dumps([row["bf16_first_tick"], row["int8_first_tick"]]))
         row["host_cost"] = host_cost(torch, model, cfg, bf_llama,
                                      model.llama)
         log("int8 weights: host cost against bf16, in turns",
@@ -3530,15 +3580,16 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                                + dh64 if x.get("form") == form),
             **timing(r), "forms": forms})
     # kernel F: the main-path shape is the decode step's gate / up product
-    # (M = 8 rows, K = 4096, N = 14336); the bf16 matmul is a yardstick of
-    # another function, so library_ms stays null
+    # (M = 8 rows, K = 4096, N = 14336); library_ms is
+    # torch._weight_int8pack_mm where PyTorch has a CUDA kernel for it (bf16
+    # scales), else null; the bf16 matmul is a yardstick of another function
     f8 = next(r for r in w8_rows if (r["M"], r["K"], r["N"]) == (8, 4096,
                                                                  14336))
 
     def w8_timing(r):
-        return {k: r[k] for k in ("ms", "ms_method", "plain_ms", "bound_ms",
-                                  "bound_by", "bound_share", "library_ms",
-                                  "bf16_matmul_ms")}
+        return {k: r[k] for k in ("form", "ms", "ms_method", "plain_ms",
+                                  "bound_ms", "bound_by", "bound_share",
+                                  "library_ms", "bf16_matmul_ms")}
 
     summary["kernels"].append({
         "name": "w8_matmul", "route": "cuda",
@@ -3549,6 +3600,7 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
         "max_abs_err": max(r["max_abs_err"] for r in w8_rows),
         "max_rel_err": max(r["rel_err"] for r in w8_rows),
         **w8_timing(f8),
+        "library_note": f8["library_note"],
         "bf16_matmul_note": f8["bf16_matmul_note"],
         "forms": {f"M{r['M']}_K{r['K']}_N{r['N']}": w8_timing(r)
                   for r in w8_rows}})
@@ -3556,9 +3608,10 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
 
 
 def check_no_spills(ptxas_log: str) -> None:
-    """Kernels A, C, D and E's fill form keep their accumulators in
-    registers: each of their entries in nvcc's `-Xptxas -v` output must
-    spill nothing.
+    """Kernels A, C, D, E's fill form and both forms of F keep their
+    accumulators in registers: each of their entries in nvcc's `-Xptxas -v`
+    output must spill nothing, and F's wgmma chains get no warpgroup wait
+    injected by the compiler (C7517-C7520).
     (An empty log means this process reused an earlier build and has
     nothing to read.)"""
     spills, entry = {}, None
@@ -3573,14 +3626,20 @@ def check_no_spills(ptxas_log: str) -> None:
     hot = {e: v for e, v in spills.items()
            if any(k in e for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                    "flash_bwd_dkv_kernel",
-                                   "chunk_fill_kernel"))}
+                                   "chunk_fill_kernel", "w8_gemv_kernel",
+                                   "w8_tiled_kernel"))}
     bad = {e: v for e, v in hot.items()
            if "0 bytes spill stores, 0 bytes spill loads" not in v}
-    if len(hot) < 10 or bad:
-        raise AssertionError(f"kernels A/C/D/E-fill spill or were not found "
-                             f"in the ptxas output: {bad or hot}")
-    log(f"build: kernels A, C, D and E's fill form, {len(hot)} entries, "
-        f"no spills")
+    if len(hot) < 15 or bad:
+        raise AssertionError(f"kernels A/C/D/E-fill/F spill or were not "
+                             f"found in the ptxas output: {bad or hot}")
+    waits = [ln.strip() for ln in ptxas_log.splitlines()
+             if "w8_" in ln and any(c in ln for c in ("C7517", "C7518",
+                                                      "C7519", "C7520"))]
+    if waits:
+        raise AssertionError(f"kernel F: warpgroup waits injected: {waits}")
+    log(f"build: kernels A, C, D, E's fill form and F, {len(hot)} entries, "
+        f"no spills; no warpgroup wait injected in F")
 
 
 def free_memory(torch) -> None:

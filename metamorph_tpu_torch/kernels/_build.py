@@ -149,10 +149,19 @@ class Kernel:
         self._fn = fn
         return fn
 
-    def launch(self, *args, site: Optional[str] = None,
-               form: Optional[str] = None) -> None:
+    def call(self, *args) -> None:
+        """Calls the entry point and raises on a nonzero cudaError_t, with
+        no count: for host-side helpers that launch nothing."""
         fn = self._fn or self._bind()
         err = fn(*args)
+        if err != 0:
+            msg = LIBRARY.get().mm_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+
+    def launch(self, *args, site: Optional[str] = None,
+               form: Optional[str] = None) -> None:
+        fn = self._fn or self._bind()      # inline, not `call`: decode
+        err = fn(*args)                    # launches kernel F ~225 times a step
         if err != 0:
             msg = LIBRARY.get().mm_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")

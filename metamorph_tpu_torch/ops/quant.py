@@ -16,7 +16,7 @@ even (as `jnp.round`) and clipped to +-127:
 cast to x's dtype: the JAX function's order of operations. XLA:TPU fuses
 the int8 -> bf16 convert into the dot there; here kernel F
 (`csrc/w8_matmul.cu`) does the same on CUDA tensors, reading each int8
-weight once and converting it in registers. CPU tensors take the plain
+weight once and converting it on chip. CPU tensors take the plain
 version (`quantized_matmul_plain`). A CUDA activation that is not bf16
 raises; nothing on the card gives way to the plain version.
 
@@ -39,13 +39,19 @@ from metamorph_tpu_torch.kernels._build import Kernel
 QUANT_KEY = "int8_q"   # marks a quantized weight in a JAX parameter tree
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-W8_MATMUL = Kernel("mm_w8_matmul", [_P] * 4 + [_I] * 6 + [_P] * 3)
+W8_MATMUL = Kernel("mm_w8_matmul", [_P] * 4 + [_I] * 5 + [_P] * 3)
+W8_QMAP = Kernel("mm_w8_qmap", [_P, _I, _I, _I, _P])
+W8_RESIDENT = Kernel("mm_w8_resident", [_I, _I, _P])
 
-GEMV_MAX_M = 32        # rows up to which kernel F runs its gemv form
-GEMV_BN = 64           # output channels per gemv CTA
-GEMV_BK = 64           # gemv k splits are multiples of this
-GEMV_MIN_SPLIT = 256   # depth of a gemv k split, at least
-GEMV_CTAS_PER_SM = 4   # the gemv grid's density
+GEMV_MAX_M = 64        # rows up to which kernel F runs its gemv form (at 48
+                       # and 64 rows 1.6-4.5x faster than the tiled form,
+                       # `kernels/bench_w8_designs.py` on an H100)
+GEMV_BN = 128          # gemv: channels per tile
+GEMV_BK = 128          # gemv: depth per unit (a tile's k block)
+GEMV_MIN_UNITS = 2     # gemv: units (16 KB of weight each) per CTA, at least
+GEMV_CTAS_PER_SM = 1   # gemv: CTAs per SM at most (more put more weight in
+                       # flight than the memory serves well)
+TILED_BM, TILED_BN = 256, 128   # tiled: the output tile, in column pairs
 
 
 class QuantizedWeight(nn.Module):
@@ -95,17 +101,53 @@ def quantized_matmul_plain(x: torch.Tensor, w: QuantizedWeight
     return out.to(x.dtype)
 
 
+def gemv_ng(M: int) -> int:
+    """n8 tiles of x rows the gemv form's kernel is built for at M rows."""
+    return 1 if M <= 8 else 2 if M <= 16 else 4 if M <= 32 else 8
+
+
 @functools.lru_cache(maxsize=None)
-def gemv_splits(K: int, N: int, sm_count: int) -> Tuple[int, int]:
-    """Kernel F's gemv k splits: (split_len, n_split) with split_len a
-    multiple of GEMV_BK, at least GEMV_MIN_SPLIT deep, and about
-    GEMV_CTAS_PER_SM CTAs per SM over the (N / 64, n_split) grid (wk and
-    wv at 8B width, N = 1,024, give only 16 tiles of channels)."""
-    tiles = math.ceil(N / GEMV_BN)
-    want = max(1, math.ceil(GEMV_CTAS_PER_SM * sm_count / tiles))
-    want = min(want, max(1, K // GEMV_MIN_SPLIT))
-    split = math.ceil(math.ceil(K / want) / GEMV_BK) * GEMV_BK
-    return split, math.ceil(K / split)
+def gemv_ctas(K: int, N: int, sm_count: int, resident: int) -> int:
+    """Kernel F's gemv grid: one wave of at most GEMV_CTAS_PER_SM CTAs per
+    SM (`resident`: the CTAs the card holds, from the kernel's registers
+    and shared memory), or fewer where the weight has under GEMV_MIN_UNITS
+    units of 128 channels x 128 deep for each, or a slightly smaller grid
+    whose runs fit the tiles. A function of the shapes and the card only,
+    never of the rows' contents."""
+    kb = math.ceil(K / GEMV_BK)
+    units = math.ceil(N / GEMV_BN) * kb
+    wave = max(1, min(resident, sm_count * GEMV_CTAS_PER_SM,
+                      units // GEMV_MIN_UNITS))
+    # a grid within 7/8 of the wave whose runs split tiles evenly (or take
+    # whole tiles) is preferred: no CTA stops mid-run to hand in a partial
+    for ctas in range(wave, (7 * wave + 7) // 8 - 1, -1):
+        run = units // ctas
+        if units % ctas == 0 and (kb % run == 0 or run % kb == 0):
+            return ctas
+    return wave
+
+
+def gemv_segments(K: int, N: int, ctas: int):
+    """The gemv kernel's schedule, as it computes it: CTA c takes units
+    [c * W / P, (c + 1) * W / P) of the W = tiles x k blocks units, tile by
+    tile. Yields (cta, tile, k block lo, k block hi, partial slot), slot 0
+    for the first tile of the CTA's run, 1 for its last."""
+    kb = math.ceil(K / GEMV_BK)
+    units = math.ceil(N / GEMV_BN) * kb
+    for c in range(ctas):
+        u, end = c * units // ctas, (c + 1) * units // ctas
+        while u < end:
+            t = u // kb
+            hi = min(kb, end - t * kb)
+            yield c, t, u - t * kb, hi, 0 if c * units // ctas // kb == t else 1
+            u = t * kb + hi
+
+
+def tiled_ctas(M: int, N: int, resident: int) -> int:
+    """Kernel F's tiled grid: persistent clusters of two CTAs, one per
+    pair of adjacent 256 x 128 output tiles, at most one wave."""
+    pairs = math.ceil(M / TILED_BM) * math.ceil(math.ceil(N / TILED_BN) / 2)
+    return 2 * max(1, min(pairs, resident // 2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,13 +155,35 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, form: int, ng: int) -> int:
+    """CTAs of kernel F's `form` (gemv at `ng` n8 tiles) card `index` holds
+    at once, from the kernel's registers and shared memory; queried once
+    per card and kernel."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        W8_RESIDENT.call(form, ng, ctypes.byref(n))
+    if n.value <= 0:
+        raise RuntimeError(f"kernel F's form {form} fits no CTA on the card")
+    return n.value
+
+
+def _qmap(q: torch.Tensor, form: int):
+    """q's TMA descriptor for `form` in a host buffer of 128 bytes, built
+    once per weight and form (the plan keeps the buffer alive)."""
+    buf = ctypes.create_string_buffer(128)
+    W8_QMAP.call(q.data_ptr(), q.shape[0], q.shape[1], form, buf)
+    return buf
+
+
 _SCRATCH = {}
 
 
 def _scratch(dev, n_floats: int, n_counters: int):
     """The gemv form's fp32 partials and zeroed arrival counters, made once
-    per (device, sizes) and reused: each launch overwrites the partials and
-    leaves the counters at zero."""
+    per (device, sizes) and shared by the plans that need those sizes:
+    each launch overwrites the partials it reads and leaves the counters
+    at zero."""
     key = (dev, n_floats, n_counters)
     if key not in _SCRATCH:
         _SCRATCH[key] = (
@@ -130,10 +194,11 @@ def _scratch(dev, n_floats: int, n_counters: int):
 
 def _plan(w: QuantizedWeight, M: int, K: int, dev):
     """Kernel F's launch arguments for an x of M rows against `w` on `dev`:
-    the weight's checks, the form, the gemv k split and its scratch, worked
-    out on the first such call and kept in `w.plans` under (M, K, device
-    index, storage). Returns ((q, scale), (M, N, K, form, split_len,
-    n_split, partials, counters), form name)."""
+    the weight's checks, the form, q's TMA descriptor, the grid and the
+    gemv form's scratch, worked out on the first such call and kept in
+    `w.plans` under (M, K, device index, storage). Returns ((descriptor
+    address, scale), (M, N, K, form, ctas, partials, counters), form name,
+    descriptor buffer)."""
     N = w.q.shape[0]
     for name, t, dt in (("q", w.q, torch.int8), ("scale", w.scale,
                                                    torch.float32)):
@@ -150,19 +215,21 @@ def _plan(w: QuantizedWeight, M: int, K: int, dev):
         raise ValueError(f"D_in = {K} must be a multiple of 16 for kernel F")
     if w.q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
-    form, split_len, n_split, ws, ctr = 1, 0, 1, None, None
+    ws = ctr = None
     if M <= GEMV_MAX_M:
-        form = 0
-        split_len, n_split = gemv_splits(K, N, _sm_count(dev.index))
-        if n_split > 1:
-            ng = 1 if M <= 8 else 2 if M <= 16 else 4
-            tiles = math.ceil(N / GEMV_BN)
-            ws_t, ctr_t = _scratch(dev, tiles * n_split * 8 * ng * GEMV_BN,
-                                   tiles)
-            ws, ctr = ws_t.data_ptr(), ctr_t.data_ptr()
-    plan = ((w.q.data_ptr(), w.scale.data_ptr()),
-            (M, N, K, form, split_len, n_split, ws, ctr),
-            "gemv" if form == 0 else "tiled")
+        form, ng = 0, gemv_ng(M)
+        ctas = gemv_ctas(K, N, _sm_count(dev.index),
+                         _resident(dev.index, form, ng))
+        ws_t, ctr_t = _scratch(dev, 2 * ctas * 8 * ng * GEMV_BN,
+                               math.ceil(N / GEMV_BN))
+        ws, ctr = ws_t.data_ptr(), ctr_t.data_ptr()
+    else:
+        form = 1
+        ctas = tiled_ctas(M, N, _resident(dev.index, form, 0))
+    qmap = _qmap(w.q, form)
+    plan = ((ctypes.addressof(qmap), w.scale.data_ptr()),
+            (M, N, K, form, ctas, ws, ctr),
+            "gemv" if form == 0 else "tiled", qmap)
     w.plans[(M, K, dev.index, w.q.data_ptr(), w.scale.data_ptr())] = plan
     return plan
 
@@ -191,11 +258,11 @@ def quantized_matmul(x: torch.Tensor, w: QuantizedWeight) -> torch.Tensor:
     plan = w.plans.get((M, K, index, q.data_ptr(), scale.data_ptr()))
     if plan is None:
         plan = _plan(w, M, K, x2.device)
-    (qp, sp), shape, tag = plan
+    (qm, sp), shape, tag, _ = plan
     if x2.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     out = x2.new_empty((M, shape[1]))
-    args = (x2.data_ptr(), qp, sp, out.data_ptr(), *shape)
+    args = (x2.data_ptr(), qm, sp, out.data_ptr(), *shape)
     if torch._C._cuda_getDevice() == index:
         _launch(index, args, tag)
     else:                    # launch on x's device, not the current one

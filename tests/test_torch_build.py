@@ -128,4 +128,4 @@ def test_shared_memory_opt_in_is_per_device():
                   and not re.search(r"<<<[^,]*,[^,]*,\s*0\s*,", x)]
         assert all(re.search(r",\s*bytes\s*,", x) for x in shared), name
         assert t.count("smem_opt_in<") == len(shared), name
-    assert sum(t.count("smem_opt_in<") for t in text.values()) == 7
+    assert sum(t.count("smem_opt_in<") for t in text.values()) == 9

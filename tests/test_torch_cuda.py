@@ -837,29 +837,97 @@ W8_TOL = 4e-3   # max|err| / max|ref| of a bf16 output against fp32 sums of
                 # output (2**-9 relative) plus fp32 sums in another order
 
 
-@pytest.mark.parametrize("M", [1, 8, 13, 17, 32, 264, 4096])
-@pytest.mark.parametrize("K,N", [(4096, 1024), (4144, 1000)])
+def _check_w8(Q, x, wq, form):
+    """Kernel F on x against its plain version at W8_TOL, bitwise on a
+    repeat, launched twice in `form`, the gemv counters left at zero."""
+    Q.W8_MATMUL.reset()
+    out = Q.quantized_matmul(x, wq)
+    again = Q.quantized_matmul(x, wq)
+    torch.cuda.synchronize()
+    assert Q.W8_MATMUL.launches == 2 and Q.W8_MATMUL.forms == {form: 2}
+    assert out.dtype == torch.bfloat16 and out.shape == (x.shape[0],
+                                                         wq.q.shape[0])
+    ref = Q.quantized_matmul_plain(x.float(), wq)
+    err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+    assert err <= W8_TOL
+    assert torch.equal(out, again)
+    assert all(int(c.abs().sum()) == 0 for _, c in Q._SCRATCH.values())
+
+
+@pytest.mark.parametrize("M", [1, 8, 13, 17, 32, 33, 48, 64, 65, 264, 4096])
+@pytest.mark.parametrize("K,N", [(4096, 1024), (4144, 1000), (4096, 14344)])
 def test_w8_matmul_kernel_matches_plain(dev, M, K, N):
-    """Both forms (gemv for M <= 32, with k splits; tiled beyond), ragged
-    K (not a multiple of the 64-deep step) and N (not a multiple of a
-    tile): against the plain version in fp32, and bitwise on a repeat."""
+    """Both forms (gemv up to GEMV_MAX_M rows, with shared tiles merged in
+    the launch; tiled beyond), around the form boundary, ragged K (4,144:
+    not a multiple of the 64- or 128-deep step) and N (not a multiple of
+    the 128- or 256-channel tile): against the plain version in fp32, and
+    bitwise on a repeat."""
     from metamorph_tpu_torch.ops import quant as Q
 
     gen = torch.Generator(device=dev).manual_seed(5)
     wq = Q.quantize_weight(torch.randn((K, N), generator=gen, device=dev)
                            * K ** -0.5)
     x = _randn(gen, dev, M, K)
-    Q.W8_MATMUL.reset()
-    out = Q.quantized_matmul(x, wq)
-    again = Q.quantized_matmul(x, wq)
-    torch.cuda.synchronize()
-    form = "gemv" if M <= 32 else "tiled"
-    assert Q.W8_MATMUL.launches == 2 and Q.W8_MATMUL.forms == {form: 2}
-    assert out.dtype == torch.bfloat16 and out.shape == (M, N)
-    ref = Q.quantized_matmul_plain(x.float(), wq)
-    err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
-    assert err <= W8_TOL
-    assert torch.equal(out, again)
+    _check_w8(Q, x, wq, "gemv" if M <= Q.GEMV_MAX_M else "tiled")
+
+
+@pytest.mark.parametrize("form,max_m", [("gemv", 64), ("tiled", 0)])
+@pytest.mark.parametrize("M", [1, 32, 33, 48, 64])
+def test_w8_both_forms_at_the_boundary(dev, monkeypatch, form, max_m, M):
+    """Each form at the row counts where the boundary is measured (the
+    gemv kernel takes up to 64 rows, the tiled one any), whichever side
+    GEMV_MAX_M puts them on."""
+    from metamorph_tpu_torch.ops import quant as Q
+
+    monkeypatch.setattr(Q, "GEMV_MAX_M", max_m)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    wq = Q.quantize_weight(torch.randn((4144, 1000), generator=gen,
+                                       device=dev) * 0.02)
+    _check_w8(Q, _randn(gen, dev, M, 4144), wq, form)
+
+
+def test_w8_tiles_straddle_the_last_wave(dev):
+    """The tiled form with a few more column-tile pairs than its persistent
+    grid holds clusters (so some clusters take a second pair) and an odd
+    number of column tiles (one CTA of the last pair has no tile of its
+    own); and the gemv form on a weight whose units do not divide evenly
+    over its grid."""
+    from metamorph_tpu_torch.ops import quant as Q
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = -(-264 // Q.TILED_BM)            # row tiles at M = 264
+    cols = -(-(sms // 2 + 3) // rows)       # column-tile pairs
+    N = Q.TILED_BN * (2 * cols - 2) + Q.TILED_BN // 2   # 2 cols - 1 tiles
+    wq = Q.quantize_weight(torch.randn((1024, N), generator=gen,
+                                       device=dev) * 0.03)
+    _check_w8(Q, _randn(gen, dev, 264, 1024), wq, "tiled")
+    (_, shape, _, _), = wq.plans.values()
+    assert rows * cols > shape[4] // 2
+    K, N = 1408, 4360                  # 11 x 35 units of 128 x 128
+    wq = Q.quantize_weight(torch.randn((K, N), generator=gen, device=dev)
+                           * 0.03)
+    _check_w8(Q, _randn(gen, dev, 8, K), wq, "gemv")
+    (_, shape, _, _), = wq.plans.values()
+    assert (11 * 35) % shape[4] != 0
+
+
+def test_w8_convert_is_exact_for_every_byte(dev):
+    """Every int8 value, -128 included, through both forms' convert: one-hot
+    rows of x pick single weights, so out is q^T exactly (scale 1)."""
+    from metamorph_tpu_torch.ops import quant as Q
+
+    K = N = 256
+    q = ((torch.arange(N)[:, None] + torch.arange(K)[None]) % 256 - 128
+         ).to(torch.int8)
+    w = Q.QuantizedWeight(q.to(dev), torch.ones(N, device=dev))
+    for M, form in ((8, "gemv"), (K, "tiled")):
+        x = torch.eye(K, device=dev)[:M].to(torch.bfloat16)
+        Q.W8_MATMUL.reset()
+        out = Q.quantized_matmul(x, w)
+        torch.cuda.synchronize()
+        assert Q.W8_MATMUL.forms == {form: 1}
+        assert torch.equal(out.float().cpu(), q[:, :M].t().float())
 
 
 def test_w8_matmul_takes_leading_dims(dev):

@@ -9,6 +9,10 @@ products in another order, as JAX's own quantized-vs-dequantized test
 holds it); greedy and engine ids EQUAL; the quantized tree through
 `convert` both ways bitwise."""
 
+import ctypes
+import functools
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -263,3 +267,133 @@ def test_lora_applies_on_top_of_a_quantized_dense(jax_params):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
     assert (got - plain).abs().max() > 1e-3
+
+
+# ---- kernel F's planner: launch arguments worked out on the host ------------
+
+PLAN_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+               (4096, 128256), (4144, 1000), (4096, 14344), (64, 48)]
+
+
+@pytest.mark.parametrize("K,N", PLAN_SHAPES)
+@pytest.mark.parametrize("sms,res", [(132, 3), (132, 2), (114, 1), (1, 1)])
+def test_gemv_schedule_covers_every_unit_once(K, N, sms, res):
+    """The gemv grid's runs cover every (channel tile, k block) unit once,
+    in runs of equal length to within one unit; each tile's segments come
+    from consecutive CTAs, in order, and are the ones the kernel finds by
+    its own arithmetic (the first and last CTA of a tile, each CTA's
+    partial slot), with no two partials of shared tiles in one slot."""
+    ctas = Q.gemv_ctas(K, N, sms, sms * res)
+    assert 1 <= ctas <= sms * min(res, Q.GEMV_CTAS_PER_SM)
+    kb, tiles = math.ceil(K / Q.GEMV_BK), math.ceil(N / Q.GEMV_BN)
+    units = kb * tiles
+    segs = list(Q.gemv_segments(K, N, ctas))
+    by_tile = {}
+    for c, t, lo, hi, slot in segs:
+        by_tile.setdefault(t, []).append((c, lo, hi, slot))
+    assert sorted(by_tile) == list(range(tiles))
+    shared_slots = []
+    for t, parts in by_tile.items():
+        assert [p[1] for p in parts] == [0] + [p[2] for p in parts[:-1]]
+        assert parts[-1][2] == kb and all(p[1] < p[2] for p in parts)
+        cs = [p[0] for p in parts]
+        assert cs == list(range(cs[0], cs[-1] + 1))
+        first = ((t * kb + 1) * ctas - 1) // units
+        last = ((t + 1) * kb * ctas - 1) // units
+        assert (first, last) == (cs[0], cs[-1])
+        if len(parts) > 1:
+            shared_slots += [(c, slot) for c, _, _, slot in parts]
+    assert len(set(shared_slots)) == len(shared_slots)
+    per_cta = [0] * ctas
+    for c, _, lo, hi, _ in segs:
+        per_cta[c] += hi - lo
+    assert sum(per_cta) == units
+    assert max(per_cta) - min(per_cta) <= 1
+    assert min(per_cta) >= min(units, Q.GEMV_MIN_UNITS)
+
+
+def _fake_card(monkeypatch, sms=132):
+    """_plan on the CPU: a card of `sms` SMs whose gemv kernel holds 3, 2,
+    2, 1 CTAs per SM at 1, 2, 4, 8 n8 tiles and whose tiled kernel holds
+    sms / 2 clusters of two, and a descriptor buffer that is never read."""
+    calls = []
+
+    def resident(index, form, ng):
+        calls.append((index, form, ng))
+        return sms * {1: 3, 2: 2, 4: 2, 8: 1}[ng] if form == 0 else sms
+
+    monkeypatch.setattr(Q, "_sm_count", lambda index: sms)
+    monkeypatch.setattr(Q, "_resident", resident)
+    monkeypatch.setattr(Q, "_qmap",
+                        lambda q, form: ctypes.create_string_buffer(128))
+    monkeypatch.setattr(Q, "_SCRATCH", {})
+    return calls
+
+
+@pytest.mark.parametrize("N", [1024, 14336, 1000])
+def test_kernel_f_grid_depends_on_shape_and_card_only(monkeypatch, N):
+    """The planned grid is a function of (K, N, SMs, residency): every row
+    count of one gemv bucket gets the same grid, the tiled form one wave
+    of two-CTA clusters over pairs of its 128 x 256 tiles, and the form
+    switches at GEMV_MAX_M."""
+    _fake_card(monkeypatch)
+    K = 512
+    w = Q.quantize_weight(torch.randn(K, N, generator=torch.Generator(
+        ).manual_seed(0)))
+    dev = torch.device("cpu")
+    for M in (1, 5, 8, 9, 16, 17, 32, 33, 64, 264, 4096):
+        (_, _), (m, n, k, form, ctas, ws, ctr), tag, buf = Q._plan(
+            w, M, K, dev)
+        assert (m, n, k) == (M, N, K) and len(buf) == 128
+        if M <= Q.GEMV_MAX_M:
+            ng = Q.gemv_ng(M)
+            assert (form, tag) == (0, "gemv") and ng * 8 >= M
+            assert ctas == Q.gemv_ctas(K, N, 132,
+                                       132 * {1: 3, 2: 2, 4: 2, 8: 1}[ng])
+            assert ctas <= 132 * Q.GEMV_CTAS_PER_SM
+            assert ws is not None and ctr is not None
+        else:
+            pairs = math.ceil(M / Q.TILED_BM) * math.ceil(
+                math.ceil(N / Q.TILED_BN) / 2)
+            assert (form, tag) == (1, "tiled")
+            assert ctas == 2 * min(pairs, 66) and ws is None and ctr is None
+    # one scratch per size: the rows of a bucket share it
+    assert len(Q._SCRATCH) == 4
+
+
+def test_kernel_f_plans_kept_per_rows_depth_device_storage(monkeypatch):
+    """A plan is made once per (rows, depth, device, storage) of a weight,
+    and the card's residency is queried once per (card, form, bucket): a
+    weight whose buffers are replaced is planned again against the new
+    storage."""
+    calls = _fake_card(monkeypatch)
+    monkeypatch.setattr(Q, "_resident", functools.lru_cache(None)(
+        Q._resident))
+    w = Q.quantize_weight(torch.randn(256, 384))
+    dev = torch.device("cpu")
+    for M in (8, 300, 8, 7, 300):
+        key = (M, 256, None, w.q.data_ptr(), w.scale.data_ptr())
+        if key not in w.plans:
+            Q._plan(w, M, 256, dev)
+    assert sorted(k[0] for k in w.plans) == [7, 8, 300]
+    assert calls == [(None, 0, 1), (None, 1, 0)]
+    w.q = w.q.clone()
+    Q._plan(w, 8, 256, dev)
+    assert len(w.plans) == 4
+    assert len({k[3] for k in w.plans}) == 2
+
+
+@pytest.mark.parametrize("K,N,ctas", [(4096, 4096, 128), (14336, 4096, 128),
+                                      (4096, 1024, 128), (4096, 14336, 132)])
+def test_gemv_grid_prefers_runs_that_fit_tiles(K, N, ctas):
+    """On a 132-SM card the gemv grid takes 128 CTAs where 128 splits every
+    tile's units evenly (wq / wo, down, wk / wv at 8B width), and the whole
+    wave where no grid within 7/8 of it does (gate / up); either way every
+    CTA's run lies in one tile or covers whole tiles when it can."""
+    assert Q.gemv_ctas(K, N, 132, 396) == ctas
+    kb = math.ceil(K / Q.GEMV_BK)
+    segs = list(Q.gemv_segments(K, N, ctas))
+    if ctas == 128:
+        assert all(hi - lo == segs[0][3] - segs[0][2] for _, _, lo, hi, _
+                   in segs) and len(segs) == ctas
+        assert kb % (segs[0][3] - segs[0][2]) == 0
