@@ -165,8 +165,29 @@ Phases (any failure raises and the script exits nonzero):
                swap lies within the logit difference measured between the
                two runs.
                Kernels F, A, B (bf16, int8) and E (both forms) must launch.
-The phases run in the order 1-3c, 10b, 11a, 4, 5, 5d, 10, 11b-11d, 9a, 5b,
-9b-9e, 5c, 8 (with 11d's `evaluate`).
+  12. the visualizer's render path at SD-1.5 width — on phase 5's model
+               (after 11d): 12a the UNet (320/640/1280/1280, 8 heads, ctx
+               768; 860 M parameters), the VAE (128/256/512/512) and the mlp
+               adapter, seeded on the CPU in fp32 and copied to the card
+               (TF32 off), against the CPU on one `unet_apply` at a 16 x 16
+               latent, one `vae_decode` and one 3-step DDIM `render`; 12b
+               `greedy_decode(start_in_image=True)` on phase 5's image prompt
+               writes one 64-token chunk of visual embeddings (kernels A and
+               B must launch), the visualizer goes through `save_visualizer`
+               and `load_visualization` (the card by default) bit for bit,
+               and the demo's `render_chunks` renders the chunk (PNDM-50,
+               512 px, guidance 6.0 / 7.5 / 10.0 / 12.5) in fp32 and in
+               bf16: four finite 512 x 512 PNGs each, in [0, 1], and the
+               bf16 images' PSNR against the fp32 ones; 12c in each dtype at
+               512 px, CFG batch 2: UNet steps/s, the step's device ms by op
+               group (conv, GEMM, attention, norms, elementwise), the busy
+               share, its FLOPs (from the shapes) and their share of 989
+               TFLOP/s, VAE decode ms, peak memory, and the level-0
+               self-attention and the VAE's mid attention in the port's
+               plain form beside SDPA (a yardstick; the path never calls
+               it).
+The phases run in the order 1-3c, 10b, 11a, 4, 5, 5d, 10, 11b-11d, 12, 9a,
+5b, 9b-9e, 5c, 8 (with 11d's `evaluate`).
 
 The last two lines of stdout are the kernel summary JSON and
 {"ok": true, "device": {...}}; the whole script's wall time is printed
@@ -3459,9 +3480,376 @@ def phase_evaluate(torch, model, cfg, batches):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the visualizer's render path at SD-1.5 width
+# ---------------------------------------------------------------------------
+
+VIS_REL_TOL = 1e-3      # 12a: fp32 on the card (TF32 off) vs fp32 on the CPU,
+                        # max|err| / max|ref| of the UNet's noise prediction
+                        # and the VAE's image: fp32 sums of up to 11,520
+                        # terms in another order (~1e-6 each), through ~70
+                        # layers
+VIS_IMG_TOL = 5e-3      # 12a: max|err| of the 3-step DDIM images in [0, 1]:
+                        # each step's difference scaled by the guidance 7.5
+VIS_LATENT = 64         # 12b, 12c: 512 px
+VIS_CHECK_LATENT = 16   # 12a: 128 px, so the CPU's side stays near seconds
+VIS_STEPS = 50          # 12b: PNDM-50, the demo's default
+VIS_ATTN_SHAPES = (("unet_level0_self", (2, 8, 4096, 40)),
+                   ("vae_mid", (1, 1, 4096, 512)))
+VIS_GROUPS = (("conv", ("convolution",)), ("gemm", ("aten::mm", "aten::addmm")),
+              ("attention", ("aten::bmm", "aten::_softmax")),
+              ("norms", ("aten::native_group_norm", "aten::native_layer_norm")))
+
+
+def vis_configs():
+    """SD-1.5's UNet and VAE, the mlp adapter (1152 -> 4096, four 4096 ->
+    4096, 4096 -> 768)."""
+    from metamorph_tpu_torch.visualizer.unet import UNetConfig
+    from metamorph_tpu_torch.visualizer.vae import VAEConfig
+
+    return UNetConfig(), VAEConfig(), dict(mode="mlp")
+
+
+def rel_err(torch, out, ref) -> dict:
+    err = (out.float().cpu() - ref.float()).abs().max().item()
+    return {"max_abs_err": err,
+            "rel_err": err / max(ref.float().abs().max().item(), 1e-30)}
+
+
+def params_equal(a, b) -> bool:
+    import torch
+
+    want = dict(b.named_parameters())
+    got = dict(a.named_parameters())
+    return sorted(got) == sorted(want) and all(
+        torch.equal(got[n], want[n]) for n in got)
+
+
+def op_groups(torch, fn) -> dict:
+    """Device ms of fn() by op group: each kernel's time goes to the aten op
+    that launched it (profiler, CPU and CUDA activity); "elementwise" is
+    every other op (casts, adds, SiLU, GELU, concatenation, upsampling)."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in VIS_GROUPS}
+    out["elementwise"] = 0.0
+    kernels = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += us / 1e3
+            continue
+        if not us:
+            continue
+        for name, keys in VIS_GROUPS:
+            if any(k == e.key or (k == "convolution" and k in e.key)
+                   for k in keys):
+                out[name] += us / 1e3
+                break
+        else:
+            out["elementwise"] += us / 1e3
+    out["unattributed"] = kernels - sum(out.values())
+    return out
+
+
+def profiled_spans(torch, fn):
+    """fn() under the profiler (the card's activity only): (kernel table,
+    kernel ms summed, ms in which at least one kernel ran, wall ms). The
+    two device figures differ where kernels overlap on several streams
+    (cuDNN's fp32 convolutions do)."""
+    from metamorph_tpu_torch.inference.profile_serve import _kernel_table
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    table = _kernel_table(prof)
+    return table, sum(r["ms"] for r in table), busy_us / 1e3, wall_ms
+
+
+def unet_step_flops(torch, ucfg, B: int, latent: int, ctx_len: int = 77
+                    ) -> int:
+    """FLOPs of one UNet call counted from the shapes (GEMMs, convolutions
+    and the attention products; torch.utils.flop_counter on "meta"
+    tensors, nothing computed)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from metamorph_tpu_torch.visualizer.unet import init_unet_params, unet_apply
+
+    u = init_unet_params(ucfg, device="meta")
+    meta = dict(device="meta")
+    with FlopCounterMode(display=False) as fc:
+        unet_apply(u, ucfg, torch.empty(B, latent, latent,
+                                        ucfg.sample_channels, **meta),
+                   torch.zeros(B, dtype=torch.int32, **meta),
+                   torch.empty(B, ctx_len, ucfg.cross_attention_dim, **meta))
+    return fc.get_total_flops()
+
+
+def attention_rows(torch, dev, dtype) -> dict:
+    """The UNet's level-0 self-attention (B=2, 8 heads, T=4096, Dh=40) and
+    the VAE's mid attention (T=4096, C=512, one head) in the port's plain
+    form (fp32 scores and softmax), and the same function through SDPA as
+    a yardstick only: ms (20 calls queued), bound, max|plain - SDPA|."""
+    import torch.nn.functional as F
+
+    from metamorph_tpu_torch.visualizer.unet import attention_probs
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    rows = {}
+    for name, shape in VIS_ATTN_SHAPES:
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for _ in range(3))
+        B, H, T, Dh = shape
+
+        def plain():
+            return attention_probs(q, k, dtype) @ v
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        with torch.no_grad():
+            diff = (plain().float() - sdpa().float()).abs().max().item()
+            b = bound(4 * q.numel() * q.element_size(), 4 * B * H * T * T * Dh)
+            ms, lib = cuda_ms(plain), cuda_ms(sdpa)
+        rows[name] = dict(shape=list(shape), ms=ms, sdpa_ms=lib,
+                          max_abs_plain_vs_sdpa=diff, **b,
+                          bound_share=b["bound_ms"] / ms)
+    return rows
+
+
+def render_numbers(torch, dev, vis, smi: str) -> dict:
+    """12c at 512 px in the visualizer's dtype: the UNet step (CFG batch 2)
+    in steps/s (5 calls queued between CUDA events), its kernel ms by op
+    group, the share of the profiled wall in which a kernel ran, its FLOPs
+    and their share of 989 TFLOP/s; the VAE decode's ms; each one's peak
+    memory above what was allocated before it."""
+    from metamorph_tpu_torch.visualizer.unet import unet_apply
+    from metamorph_tpu_torch.visualizer.vae import vae_decode
+
+    adapter, unet, vae, ucfg, vcfg, _ = vis
+    dtype = next(unet.parameters()).dtype
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    L = VIS_LATENT
+    lat = torch.randn(2, L, L, ucfg.sample_channels, generator=g,
+                      device=dev).to(dtype)
+    ctx = torch.randn(2, 77, ucfg.cross_attention_dim, generator=g,
+                      device=dev).to(dtype)
+    tt = torch.full((2,), 981, dtype=torch.int32, device=dev)
+    lat1 = torch.randn(1, L, L, vcfg.latent_channels, generator=g,
+                       device=dev).to(dtype)
+
+    def step():
+        return unet_apply(unet, ucfg, lat, tt, ctx)
+
+    def decode():
+        return vae_decode(vae, vcfg, lat1)
+
+    def peak_gib(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    with torch.no_grad():
+        step_ms = cuda_ms(step, calls=5, reps=3)
+        table, kernel_ms, busy_ms, wall_ms = profiled_spans(
+            torch, lambda: [step() for _ in range(3)])
+        groups = op_groups(torch, step)
+        vae_ms = cuda_ms(decode, calls=3, reps=3)
+        peaks = {"unet_step_peak_gib": peak_gib(step),
+                 "vae_decode_peak_gib": peak_gib(decode)}
+    flops = unet_step_flops(torch, ucfg, 2, L)
+    row = dict(dtype=str(dtype).replace("torch.", ""), smi=smi, latent=L,
+               unet_step_ms=step_ms, unet_steps_per_s=1e3 / step_ms,
+               unet_step_kernel_ms=kernel_ms / 3,
+               unet_step_busy_ms=busy_ms / 3, busy=busy_ms / wall_ms,
+               profiled_step_wall_ms=wall_ms / 3,
+               op_group_ms=groups, unet_step_tflop=flops / 1e12,
+               tflops=flops / step_ms / 1e9,
+               share_of_989=flops / step_ms / 1e9 / PEAK_BF16_TFLOPS,
+               vae_decode_ms=vae_ms, **peaks,
+               top_kernels=table[:6],
+               attention=attention_rows(torch, dev, dtype))
+    log("visualizer 12c", json.dumps(row))
+    return row
+
+
+def phase_visualizer(torch, dev, model, cfg, reqs, smi: str) -> dict:
+    """Phase 12 on phase 5's model: 12a the SD-1.5-width UNet, VAE and mlp
+    adapter, seeded on the CPU in fp32 and copied to the card, against the
+    CPU on one UNet call, one VAE decode and one 3-step DDIM render; 12b
+    `greedy_decode(start_in_image=True)` writes one 64-token chunk of
+    visual embeddings (kernels A and B), the visualizer goes through
+    `save_visualizer` / `load_visualization` bit for bit, and the demo's
+    `render_chunks` renders the chunk (PNDM-50, 512 px, four guidance
+    scales) in fp32 and in bf16; 12c the render's numbers in each dtype."""
+    import numpy as np
+    from PIL import Image
+
+    from metamorph_tpu_torch.inference import decode as dec
+    from metamorph_tpu_torch.inference import demo, loader
+    from metamorph_tpu_torch.ops.decode_attention import DECODE_ATTN
+    from metamorph_tpu_torch.ops.flash_attention import FLASH_FWD
+    from metamorph_tpu_torch.visualizer import adapter as va
+    from metamorph_tpu_torch.visualizer import pipeline
+    from metamorph_tpu_torch.visualizer import unet as vu
+    from metamorph_tpu_torch.visualizer import vae as vv
+
+    ucfg, vcfg, akw = vis_configs()
+    K = cfg.mm.num_image_tokens
+    Dv = cfg.siglip.hidden_size
+    row = {}
+    # 12a
+    t = time.perf_counter()
+    cpu = (va.init_adapter(akw["mode"], input_dim=Dv,
+                           output_dim=ucfg.cross_attention_dim,
+                           **{k: v for k, v in akw.items() if k != "mode"},
+                           seed=0, device="cpu"),
+           vu.init_unet_params(ucfg, seed=1, device="cpu"),
+           vv.init_vae_params(vcfg, seed=2, device="cpu"))
+    row["params_m"] = [sum(p.numel() for p in t_.parameters()) / 1e6
+                       for t_ in cpu]
+    row["init_cpu_s"] = time.perf_counter() - t
+    card = tuple(t_.copy_to(dev) for t_ in cpu)
+    g = torch.Generator()
+    g.manual_seed(12)
+    S = VIS_CHECK_LATENT
+    lat = torch.randn(2, S, S, ucfg.sample_channels, generator=g)
+    ctx = torch.randn(2, 77, ucfg.cross_attention_dim, generator=g)
+    tt = torch.tensor([981, 981], dtype=torch.int32)
+    emb = torch.randn(1, K, Dv, generator=g)
+    checks = {}
+    with torch.no_grad():
+        t = time.perf_counter()
+        ref = vu.unet_apply(cpu[1], ucfg, lat, tt, ctx)
+        checks["unet_cpu_s"] = time.perf_counter() - t
+        checks["unet"] = rel_err(torch, vu.unet_apply(
+            card[1], ucfg, lat.to(dev), tt.to(dev), ctx.to(dev)), ref)
+        lat1 = lat[:1] * 0.18215
+        t = time.perf_counter()
+        ref = vv.vae_decode(cpu[2], vcfg, lat1)
+        checks["vae_cpu_s"] = time.perf_counter() - t
+        checks["vae"] = rel_err(torch, vv.vae_decode(card[2], vcfg,
+                                                     lat1.to(dev)), ref)
+        kw = dict(scheduler="ddim", num_inference_steps=3, latent_size=S)
+        t = time.perf_counter()
+        ref = pipeline.render(*cpu, ucfg, vcfg, emb,
+                              torch.Generator().manual_seed(3), **kw)
+        checks["render_cpu_s"] = time.perf_counter() - t
+        checks["render"] = rel_err(torch, pipeline.render(
+            *card, ucfg, vcfg, emb, torch.Generator().manual_seed(3), **kw),
+            ref)
+    row["check"] = checks
+    log("visualizer 12a", json.dumps(row))
+    bad = [n for n in ("unet", "vae") if checks[n]["rel_err"] > VIS_REL_TOL]
+    if bad or checks["render"]["max_abs_err"] > VIS_IMG_TOL:
+        raise AssertionError(f"visualizer 12a: card vs CPU beyond "
+                             f"{VIS_REL_TOL} (rel) / {VIS_IMG_TOL} (images): "
+                             f"{bad} {checks}")
+
+    # 12b: the served path writes one chunk of visual embeddings
+    r = next(r for r in reqs if r["uid"] == "image")
+    pe = request_embeds(torch, model, cfg, r)
+    FLASH_FWD.reset()
+    DECODE_ATTN.reset()
+    out = dec.greedy_decode(model, cfg, pe, max_new_tokens=K + 8,
+                            max_images=1, start_in_image=True)
+    launches = {"flash_fwd": FLASH_FWD.launches,
+                "decode_attn": DECODE_ATTN.launches}
+    n_img = int(out["n_image_tokens"])
+    embeds = out["image_embeds"][:n_img].float().cpu().numpy()
+    row["decode"] = dict(launches=launches, n_image_tokens=n_img,
+                         steps=int(out["steps"]))
+    if n_img != K or embeds.shape != (K, Dv) or \
+            not np.isfinite(embeds).all() or min(launches.values()) <= 0:
+        raise AssertionError(f"visualizer 12b: decode gave {n_img} visual "
+                             f"tokens {embeds.shape}, launches {launches}")
+    d = tempfile.mkdtemp(prefix="chip_smoke_vis_")
+    try:
+        t = time.perf_counter()
+        loader.save_visualizer(os.path.join(d, "vis"), *cpu, ucfg, vcfg,
+                               akw["mode"])
+        row["save_s"] = time.perf_counter() - t
+        del cpu
+        runs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype).replace("torch.", "")
+            t = time.perf_counter()
+            vis = loader.load_visualization(os.path.join(d, "vis"),
+                                            dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            run = {"load_s": time.perf_counter() - t}
+            if dtype == torch.float32:
+                if not all(params_equal(a, b) for a, b in zip(vis, card)):
+                    raise AssertionError("visualizer 12b: the loaded "
+                                         "visualizer differs from the saved")
+                del card
+                free_memory(torch)
+            out_dir = os.path.join(d, f"png_{tag}")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            imgs = demo.render_chunks(embeds, vis, out_dir, "pndm",
+                                      VIS_STEPS, K, latent_size=VIS_LATENT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            imgs = imgs[0]
+            names = sorted(os.listdir(out_dir))
+            side = VIS_LATENT * 2 ** (len(vcfg.block_out_channels) - 1)
+            pngs = [np.asarray(Image.open(os.path.join(out_dir, n)))
+                    for n in names]
+            if names != [f"gen_0_scale{i}.png" for i in range(4)] or \
+                    imgs.shape != (4, side, side, 3) or \
+                    not np.isfinite(imgs).all() or imgs.min() < 0 or \
+                    imgs.max() > 1 or any(p.shape != (side, side, 3)
+                                          for p in pngs):
+                raise AssertionError(f"visualizer 12b ({tag}): {names}, "
+                                     f"{imgs.shape}, range "
+                                     f"[{imgs.min()}, {imgs.max()}]")
+            run.update(render_chunks_s=wall, s_per_image=wall / 4,
+                       pixel_mean=float(imgs.mean()),
+                       pixel_std=float(imgs.std()))
+            runs[tag] = (run, imgs)
+            row[f"numbers_{tag}"] = render_numbers(torch, dev, vis, smi)
+            del vis
+            free_memory(torch)
+        mse = float(((runs["bfloat16"][1] - runs["float32"][1]) ** 2).mean())
+        row["render"] = {k: r for k, (r, _) in runs.items()}
+        row["render"]["psnr_bf16_vs_fp32_db"] = 10 * math.log10(
+            1.0 / max(mse, 1e-20))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log("visualizer 12b", json.dumps({k: row[k] for k in ("decode",
+                                                         "render")}))
+    return row
+
+
 def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                    options_rows, decode_row, train_row, recipe_row,
-                   weights_row, w8_rows, p11_launches) -> dict:
+                   weights_row, w8_rows, p11_launches, vis_launches) -> dict:
     """The summary line: one entry per kernel, its launches on the main
     paths (summed, and by path), its worst error, and its time, plain time,
     bound and library time at the main-path shape (kernels B and E also at
@@ -3481,9 +3869,10 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
     ol = {k: r["launches"] for k, r in options_rows.items()}
     dl = decode_row["launches"]
 
-    def by_path(symbol, serve=0, decode=0, options=0, p11=0):
+    def by_path(symbol, serve=0, decode=0, options=0, p11=0, vis=0):
         paths = {"serve": serve, "serve_options": options,
                  "decode_frontends": decode, "int8_prefix_eval": p11,
+                 "visualizer": vis,
                  "train_main": tl.get(symbol, 0),
                  "recipe_data_path": rl.get(symbol, 0),
                  "weights": wl.get(symbol, 0)}
@@ -3513,7 +3902,7 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
          **by_path("mm_flash_fwd_bf16", main_row["launches"]["flash_fwd"],
                    dl["flash_fwd"],
                    sum(ol[k]["mm_flash_fwd_bf16"]["total"] for k in ol),
-                   p11_launches["flash_fwd"]),
+                   p11_launches["flash_fwd"], vis_launches["flash_fwd"]),
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
          **timing(fl),
          "forms": {f"causal_T{r['T']}": timing(r)
@@ -3524,7 +3913,7 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
          **by_path("mm_decode_attn_bf16", main_row["launches"]["decode_attn"],
                    dl["decode_attn"],
                    ol["bf16"]["mm_decode_attn_bf16"]["total"],
-                   p11_launches["decode_attn"]),
+                   p11_launches["decode_attn"], vis_launches["decode_attn"]),
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["decode"]
                             + drafter_rows["decode"]),
          **timing(de),
@@ -3696,6 +4085,8 @@ def main() -> int:
     int8_row = phase_int8_weights(torch, dev, *served, main_row)
     prefix_row = phase_prefix(torch, dev, *served[:3])
     tasks_bf16 = phase_eval_tasks(torch, dev, *served[:2], "bf16")
+    vis_row = phase_visualizer(torch, dev, *served[:3], smi)
+    free_memory(torch)
     model, cfg5, reqs, plain_run = served
     del served
     # phase 9's files (~20 GB): in the temp dir, deleted whatever happens
@@ -3727,7 +4118,8 @@ def main() -> int:
     log("int8, prefix and eval: launches", json.dumps(p11))
     summary = kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows,
                              main_row, options_rows, decode_row, train_row,
-                             recipe_row, weights_row, w8_rows, p11)
+                             recipe_row, weights_row, w8_rows, p11,
+                             vis_row["decode"]["launches"])
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps(summary))

@@ -15,7 +15,10 @@ JSONL, with the templates, masking, anyres and the native packer, and the
 `train/main.py` CLI) and the weights slice (`utils/safetensors_io.py`,
 `models/hf_import.py`'s HF-layout import and export, `inference/loader.py`,
 `models/lora.py` with LoRA on every LLaMA path, the adapter, LoRA and
-HF-export saves of `train/checkpoint.py`, and `consolidate.py`), on six
+HF-export saves of `train/checkpoint.py`, and `consolidate.py`) and the
+visualizer's render path (`visualizer/`: schedulers, adapter, SD-1.5 UNet
+and VAE, `render`, diffusers-format import; its checkpoints through
+`inference/loader.py`, `--visualizer` in the demo), on six
 hand-written CUDA C++ kernels under `csrc/`: the flash-attention forward
 and its dq and dk/dv backward (`ops/flash_attention.py`), decode attention
 over a bf16 or int8 cache, chunk attention (`ops/decode_attention.py`),
@@ -30,6 +33,8 @@ Entry points run on the card unless the caller passes `device="cpu"`.
                                                       load_lora_model)
     from metamorph_tpu_torch.models.lora import add_lora, merge_lora
     from metamorph_tpu_torch.train.checkpoint import export_hf, save_lora
+    from metamorph_tpu_torch.inference.loader import load_visualization
+    from metamorph_tpu_torch.visualizer.pipeline import render
     python -m metamorph_tpu_torch.train.main --config ... --data-path ...
     python -m metamorph_tpu_torch.consolidate --src OUT --dst EXPORT
 """

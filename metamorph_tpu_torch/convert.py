@@ -15,6 +15,10 @@ same for a bare LLaMA tree (`init_llama_params`, e.g. a drafter).
 int8 leaves included) as the JAX tree of numpy arrays, so tests compare
 parameters leaf by leaf.
 
+`visualizer_from_jax_params` / `visualizer_to_jax_params` carry the
+diffusion visualizer's three trees (adapter, UNet, VAE) across the same
+way, conv kernels between JAX's HWIO and torch's [out, in, kh, kw].
+
 `init_params` (and `init_llama`, for a bare LLaMA) makes random weights
 on the device from a seed, at the scales the JAX initializers use
 (normal * fan_in**-0.5 for the LLaMA and SigLIP
@@ -359,3 +363,28 @@ def init_parts_(model: MetaMorph, cfg: MetaMorphConfig, seed: int = 0,
         # randn(D) / sqrt(D), as the reference initialises it
         normal(model.image_newline, cfg.llama.hidden_size)
     return model
+
+
+@torch.no_grad()
+def visualizer_from_jax_params(adapter: Mapping[str, Any],
+                               unet: Mapping[str, Any],
+                               vae: Mapping[str, Any], device="cuda",
+                               dtype: Optional[torch.dtype] = None):
+    """The JAX visualizer's three trees (`init_adapter`,
+    `init_unet_params`, `init_vae_params` or `load_visualization`) ->
+    (adapter, unet, vae) `ParamTree`s on `device` (the card unless the
+    caller passes another): HWIO conv kernels become [out, in, kh, kw],
+    dense kernels stay [in, out], and `attns: None` stays None. Floating
+    leaves are cast to `dtype` when given, else kept bit for bit."""
+    from metamorph_tpu_torch.visualizer.params import tree_from_jax
+
+    device = resolve_device(device)
+    return tuple(tree_from_jax(t, device, dtype) for t in (adapter, unet, vae))
+
+
+def visualizer_to_jax_params(adapter, unet, vae):
+    """Inverse of `visualizer_from_jax_params`: three JAX trees of numpy
+    arrays, bit for bit (bf16 weights as fp32 arrays)."""
+    from metamorph_tpu_torch.visualizer.params import tree_to_jax
+
+    return tuple(tree_to_jax(t) for t in (adapter, unet, vae))

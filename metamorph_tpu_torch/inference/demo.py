@@ -5,17 +5,20 @@ image (or 1-FPS video frames), build the LLaMA-3 prompt with
     python -m metamorph_tpu_torch.inference.demo --model-path CKPT \
         --tokenizer HF_TOKENIZER_DIR --image cat.jpg \
         --prompt "What is in this image?" [--spec-k 4 [--draft-model DIR]] \
-        [--device cuda]
+        [--device cuda] \
+        [--visualizer VIS_DIR [--render-scheduler pndm|ddim|dpmpp]
+         [--render-steps 50] [--out-dir ./demo_out]]
 
 The flags are the JAX CLI's, plus `--device` (default `cuda`; a run on the
-CPU asks for `cpu`). `--visualizer` (rendering the generated visual tokens
-through the diffusion visualizer) is not ported: it raises before any
-work, and its options (`--render-scheduler`, `--render-steps`,
-`--out-dir`) come with it. `main` loads the checkpoint (`loader.load_pretrained_model`), the
-tokenizer (`transformers`, imported there) and the drafter
-(`hf_import.load_hf_llama`, in the model's dtype); the work is `run`,
-which takes a `tokenize(str) -> ids` and a `decode(ids) -> str` callable
-and the BOS id, so a caller without HF files drives the same pipeline.
+CPU asks for `cpu`). `main` loads the checkpoint
+(`loader.load_pretrained_model`), the tokenizer (`transformers`, imported
+there) and the drafter (`hf_import.load_hf_llama`, in the model's dtype);
+the work is `run`, which takes a `tokenize(str) -> ids` and a
+`decode(ids) -> str` callable and the BOS id, so a caller without HF files
+drives the same pipeline. With `--visualizer`, every 64-token chunk of
+generated visual embeddings is rendered by `render_chunks` (the
+visualizer from `loader.load_visualization`, in fp32) at four guidance
+scales into `OUT_DIR/gen_{chunk}_scale{i}.png`.
 """
 
 from __future__ import annotations
@@ -136,6 +139,45 @@ def run(model, cfg, tokenize: Callable[[str], List[int]],
             "image_embeds": out["image_embeds"][:k].float().cpu().numpy()}
 
 
+GUIDANCE_SCALES = (6.0, 7.5, 10.0, 12.5)
+
+
+def render_chunks(embeds, vis, out_dir: str, scheduler: str = "pndm",
+                  steps: int = 50, K: int = 64, latent_size: int = 64
+                  ) -> List:
+    """Render each K-token chunk c of generated visual embeddings
+    (`embeds` [n, Dv], numpy or a tensor) through `vis` (what
+    `loader.load_visualization` returns) at GUIDANCE_SCALES, with noise
+    seeded by c, and write `out_dir/gen_{c}_scale{gi}.png`. Returns the
+    images, one [n_scales, H, W, 3] fp32 array in [0, 1] per chunk."""
+    import os
+
+    import torch
+    from PIL import Image
+
+    from metamorph_tpu_torch.visualizer.pipeline import render_multi_scale
+
+    adapter, unet, vae, unet_cfg, vae_cfg, mode = vis
+    embeds = torch.as_tensor(np.asarray(embeds, np.float32))
+    os.makedirs(out_dir, exist_ok=True)
+    out = []
+    for c in range(embeds.shape[0] // K):
+        gen = torch.Generator()
+        gen.manual_seed(c)
+        imgs = render_multi_scale(adapter, unet, vae, unet_cfg, vae_cfg,
+                                  embeds[None, c * K:(c + 1) * K], gen,
+                                  guidance_scales=GUIDANCE_SCALES,
+                                  adapter_mode=mode, scheduler=scheduler,
+                                  num_inference_steps=steps,
+                                  latent_size=latent_size)[0]
+        imgs = imgs.cpu().numpy()
+        for gi, img in enumerate(imgs):
+            Image.fromarray((img * 255).astype(np.uint8)).save(
+                os.path.join(out_dir, f"gen_{c}_scale{gi}.png"))
+        out.append(imgs)
+    return out
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--model-path", required=True)
@@ -143,7 +185,8 @@ def parse_args(argv=None):
                         help="HF tokenizer dir for LLaMA-3")
     parser.add_argument("--siglip", default=None, help="HF SigLIP weights dir")
     parser.add_argument("--visualizer", default=None,
-                        help="not ported (raises NotImplementedError)")
+                        help="visualizer checkpoint dir: render the "
+                             "generated visual tokens to PNGs")
     parser.add_argument("--image", required=True)
     parser.add_argument("--image-aspect-ratio", default="square",
                         choices=["square", "pad", "anyres"])
@@ -156,6 +199,11 @@ def parse_args(argv=None):
                         help="HF dir of a small shared-vocab LLaMA: with "
                              "--spec-k > 1, drafts come from this model "
                              "instead of prompt-lookup (same output)")
+    parser.add_argument("--render-scheduler", default="pndm",
+                        choices=["pndm", "ddim", "dpmpp"],
+                        help="dpmpp reaches pndm@50 quality at ~20 steps")
+    parser.add_argument("--render-steps", type=int, default=50)
+    parser.add_argument("--out-dir", default="./demo_out")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (cuda, cuda:N or cpu)")
     return parser.parse_args(argv)
@@ -163,11 +211,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> Dict:
     args = parse_args(argv)
-    if args.visualizer:
-        raise NotImplementedError(
-            "--visualizer (rendering generated visual tokens) is not ported "
-            "to the PyTorch package yet: ROADMAP Queue 1 item 7, the "
-            "visualizer")
     if args.draft_model and args.spec_k <= 1:
         raise SystemExit("--draft-model requires --spec-k >= 2")
 
@@ -191,6 +234,15 @@ def main(argv=None) -> Dict:
               args.image_aspect_ratio, args.max_new_tokens, args.spec_k,
               draft)
     print(res["text"])
+    K = cfg.mm.num_image_tokens
+    if res["n_image_tokens"] and args.visualizer:
+        from metamorph_tpu_torch.inference.loader import load_visualization
+
+        vis = load_visualization(args.visualizer, device=device)
+        render_chunks(res["image_embeds"], vis, args.out_dir,
+                      args.render_scheduler, args.render_steps, K)
+        print(f"rendered {res['n_image_tokens'] // K} image(s) to "
+              f"{args.out_dir}")
     return res
 
 

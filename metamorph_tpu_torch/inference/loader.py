@@ -11,10 +11,15 @@ tower that is neither in the file nor given) keeps the port's seed-0
 random init (`convert.init_parts_`), as the JAX loader keeps its own.
 
 `load_lora_model` adds a LoRA file's factors and merges them.
+`load_visualization` and `save_visualizer` read and write the diffusion
+visualizer's directory in the JAX package's format, so either package
+loads what the other wrote.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
@@ -152,15 +157,47 @@ def _listify(node):
     return {k: _listify(v) for k, v in node.items()}
 
 
-def _visualizer_not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"{name} is not ported to the PyTorch package "
-                               f"yet (the visualizer slice)")
+def load_visualization(ckpt_dir: str, dtype=torch.float32, device="cuda"):
+    """The visualizer (adapter, unet, vae, unet_cfg, vae_cfg, adapter_mode)
+    on `device` (the card unless the caller passes another), from a
+    directory as JAX's and the port's `save_visualizer` write it:
+    `adapter`, `unet` and `vae.safetensors` holding JAX's `flatten_tree`
+    keys and layouts (HWIO convs, [in, out] dense kernels), and
+    `visualizer_config.json`."""
+    from metamorph_tpu_torch.utils.safetensors_io import SafetensorsFile
+    from metamorph_tpu_torch.visualizer.params import tree_from_jax
+    from metamorph_tpu_torch.visualizer.unet import UNetConfig
+    from metamorph_tpu_torch.visualizer.vae import VAEConfig
 
+    device = resolve_device(device)
+    ckpt_dir = resolve_model_dir(ckpt_dir)
+    with open(os.path.join(ckpt_dir, "visualizer_config.json")) as f:
+        meta = json.load(f)
+    unet_cfg = UNetConfig(**{k: (tuple(v) if isinstance(v, list) else v)
+                             for k, v in meta["unet"].items()})
+    vae_cfg = VAEConfig(**{k: (tuple(v) if isinstance(v, list) else v)
+                           for k, v in meta["vae"].items()})
 
-def load_visualization(ckpt_dir: str, dtype=torch.float32):
-    raise _visualizer_not_ported("load_visualization")
+    def load_tree(name):
+        flat = SafetensorsFile(os.path.join(ckpt_dir, f"{name}.safetensors"))
+        return tree_from_jax(unflatten_tree(dict(flat)), device, dtype)
+
+    return (load_tree("adapter"), load_tree("unet"), load_tree("vae"),
+            unet_cfg, vae_cfg, meta.get("adapter_mode", "mlp"))
 
 
 def save_visualizer(ckpt_dir: str, adapter, unet, vae, unet_cfg, vae_cfg,
-                    adapter_mode: str = "mlp"):
-    raise _visualizer_not_ported("save_visualizer")
+                    adapter_mode: str = "mlp") -> None:
+    """Write the visualizer as JAX's `save_visualizer` does (see
+    `load_visualization`), each tensor in its own dtype."""
+    from metamorph_tpu_torch.utils.safetensors_io import save_file
+    from metamorph_tpu_torch.visualizer.params import flat_to_jax
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for name, tree in (("adapter", adapter), ("unet", unet), ("vae", vae)):
+        save_file(flat_to_jax(tree),
+                  os.path.join(ckpt_dir, f"{name}.safetensors"))
+    with open(os.path.join(ckpt_dir, "visualizer_config.json"), "w") as f:
+        json.dump({"unet": dataclasses.asdict(unet_cfg),
+                   "vae": dataclasses.asdict(vae_cfg),
+                   "adapter_mode": adapter_mode}, f, indent=2)

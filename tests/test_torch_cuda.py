@@ -1,7 +1,9 @@
 """PyTorch port, CUDA kernels on the card: each kernel against its plain
 PyTorch version (fp32 math and fp32 output from the same bf16 inputs), the
 launch counters,
-and the wrappers' input checks. Skips where there is no CUDA device.
+and the wrappers' input checks; the visualizer's render on the card
+against the CPU, and its loader's device rule. Skips where there is no
+CUDA device.
 
 On a machine with an NVIDIA GPU (and no JAX, which tests/conftest.py
 imports):  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1055,3 +1057,55 @@ def test_int8_model_on_card_matches_cpu(dev):
     assert torch.isfinite(logits["gpu"]).all() and cos.min() >= 0.99
     # 7 products per layer in the prefill and in the step, and the head
     assert Q.W8_MATMUL.launches == 2 * 7 * 2 + 1
+
+
+def _tiny_visualizer(device):
+    from metamorph_tpu_torch.visualizer import adapter, unet, vae
+
+    ucfg, vcfg = unet.UNetConfig.tiny(), vae.VAEConfig.tiny()
+    return (adapter.init_adapter(input_dim=12, hidden_dim=16,
+                                 output_dim=16, num_layers=2, seed=1,
+                                 device=device),
+            unet.init_unet_params(ucfg, seed=2, device=device),
+            vae.init_vae_params(vcfg, seed=3, device=device), ucfg, vcfg)
+
+
+def test_visualizer_render_on_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """The visualizer written on the CPU, loaded on the card (the loader's
+    default device), renders what the CPU renders from the same noise: fp32
+    with TF32 off to 1e-3 on the images; bf16 finite and in [0, 1]."""
+    from metamorph_tpu_torch.inference import loader
+    from metamorph_tpu_torch.visualizer import pipeline
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    *cpu, ucfg, vcfg = _tiny_visualizer("cpu")
+    loader.save_visualizer(str(tmp_path), *cpu, ucfg, vcfg)
+    card = loader.load_visualization(str(tmp_path))
+    assert {p.device.type for t in card[:3] for p in t.parameters()} == {
+        "cuda"}
+    embeds = torch.randn(1, 4, 12, generator=torch.Generator().manual_seed(0))
+    kw = dict(num_inference_steps=4, latent_size=8, scheduler="pndm")
+    ref = pipeline.render(*cpu, ucfg, vcfg, embeds,
+                          torch.Generator().manual_seed(5), **kw)
+    out = pipeline.render(*card[:3], ucfg, vcfg, embeds,
+                          torch.Generator().manual_seed(5), **kw)
+    assert out.device.type == "cuda" and out.shape == (1, 16, 16, 3)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3
+    half = loader.load_visualization(str(tmp_path), dtype=torch.bfloat16)
+    img = pipeline.render(*half[:3], ucfg, vcfg, embeds,
+                          torch.Generator().manual_seed(5), **kw)
+    assert torch.isfinite(img).all() and 0 <= img.min() and img.max() <= 1
+
+
+def test_visualizer_entry_points_default_to_the_card(dev, tmp_path):
+    from metamorph_tpu_torch.inference import loader
+
+    *card, ucfg, vcfg = _tiny_visualizer("cuda")
+    assert all(p.device.type == "cuda" for t in card for p in t.parameters())
+    loader.save_visualizer(str(tmp_path), *card, ucfg, vcfg)
+    back = loader.load_visualization(str(tmp_path), device="cpu")
+    for a, b in zip(card, back[:3]):
+        want = dict(a.named_parameters())
+        for n, p in b.named_parameters():
+            assert p.device.type == "cpu" and torch.equal(p, want[n].cpu())

@@ -7,9 +7,8 @@ fp32 (each loader is wrapped to ask for float32; their CLIs load bf16),
 the tokenizer is the stub of tests/test_e2e_demo.py, and each CLI's
 `main` runs end to end: the same text and the same number of generated
 image tokens. The HTTP server answers on 127.0.0.1:0 (no network) with
-the ids JAX's server gives for the same greedy requests. The visualizer
-option, not ported, raises, and without a card the entry points raise
-unless told `--device cpu`."""
+the ids JAX's server gives for the same greedy requests. Without a card
+the entry points raise unless told `--device cpu`."""
 
 import json
 import sys
@@ -370,15 +369,11 @@ def test_http_main_serves_and_stops(files, fp32_and_fake_tokenizer):
 
 # ---- refusals ---------------------------------------------------------------
 
-def test_unported_options_raise(files, fp32_and_fake_tokenizer, jax_params):
-    """The visualizer is the one front-end option still unported. `--int8`
-    and `--system-prompt` run (tests/test_torch_quant.py,
-    tests/test_torch_prefix.py, the serve CLI case above); a shared prefix
-    refuses chunked fill, as in JAX."""
-    common = ["--model-path", str(files / "model"), "--tokenizer", "fake",
-              "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        demo.main(common + ["--image", "none.png", "--visualizer", "v"])
+def test_shared_prefix_refuses_chunked_fill(jax_params):
+    """A shared prefix refuses chunked fill, as in JAX. Every front-end
+    option is ported: `--int8` and `--system-prompt` run
+    (tests/test_torch_quant.py, tests/test_torch_prefix.py, the serve CLI
+    case above), `--visualizer` renders (tests/test_torch_visualizer_io.py)."""
     model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
                             device="cpu")
     with pytest.raises(ValueError, match="fill_chunk"):

@@ -592,8 +592,8 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
 def test_package_imports_without_jax():
     """Every module of metamorph_tpu_torch imports in a process where
     neither JAX nor the JAX package can be imported, and none of them pulls
-    either in. The decode entry points and the front ends are named, so
-    that they stay among the modules walked."""
+    either in. The decode entry points, the front ends and the visualizer
+    are named, so that they stay among the modules walked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -614,3 +614,6 @@ def test_package_imports_without_jax():
     assert len(names) >= 31
     assert {f"metamorph_tpu_torch.inference.{m}" for m in (
         "decode", "spec_decode", "demo", "serve_cli", "serve_http")} <= names
+    assert {f"metamorph_tpu_torch.visualizer.{m}" for m in (
+        "scheduler", "adapter", "unet", "vae", "pipeline", "hf_import",
+        "params")} <= names

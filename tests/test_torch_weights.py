@@ -559,8 +559,9 @@ def test_resolve_model_dir_and_entry_points_need_a_card(tmp_path,
                                                         monkeypatch):
     """A local dir passes through; a name that is not one raises
     FileNotFoundError when huggingface_hub is absent or cannot fetch it
-    (both simulated, so no network is touched). The new entry points
-    raise without a card unless the caller passes device="cpu"."""
+    (both simulated, so no network is touched). The new entry points,
+    the visualizer's loader among them, raise without a card unless the
+    caller passes device="cpu"."""
     import sys
     import types
 
@@ -598,5 +599,21 @@ def test_resolve_model_dir_and_entry_points_need_a_card(tmp_path,
                                    r=2, alpha=4.0, device="cpu")
     assert m2.llama.embed.device.type == "cpu"
     assert all("_lora_" not in n for n, _ in m2.named_parameters())
-    with pytest.raises(NotImplementedError, match="visualizer"):
-        loader.load_visualization(str(tmp_path))
+    # the visualizer's loader: no card raises, device="cpu" loads
+    from metamorph_tpu_torch.visualizer import adapter, unet, vae
+
+    ucfg, vcfg = unet.UNetConfig.tiny(), vae.VAEConfig.tiny()
+    vis = (adapter.init_adapter(input_dim=8, hidden_dim=8, output_dim=16,
+                                num_layers=2, device="cpu"),
+           unet.init_unet_params(ucfg, device="cpu"),
+           vae.init_vae_params(vcfg, device="cpu"))
+    loader.save_visualizer(str(tmp_path / "vis"), *vis, ucfg, vcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loader.load_visualization(str(tmp_path / "vis"))
+    got = loader.load_visualization(str(tmp_path / "vis"), device="cpu")
+    assert got[3:] == (ucfg, vcfg, "mlp")
+    for a, b in zip(got[:3], vis):
+        want = dict(b.named_parameters())
+        assert sorted(n for n, _ in a.named_parameters()) == sorted(want)
+        for n, p in a.named_parameters():
+            assert p.device.type == "cpu" and torch.equal(p, want[n]), n
