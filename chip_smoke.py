@@ -186,8 +186,37 @@ Phases (any failure raises and the script exits nonzero):
                self-attention and the VAE's mid attention in the port's
                plain form beside SDPA (a yardstick; the path never calls
                it).
+  5e. offload_optimizer — 5b's cut with the AdamW moments in pinned host
+               memory (`train/optimizer.py` streams them through the card
+               per 256 MB chunk): /proc/meminfo, the moments' GiB (from
+               the trainable mask) and the host <-> card copy rates, then
+               3 offloaded steps against 3 with the moments on the card
+               from the same start: losses and every parameter bitwise
+               equal (checksums), the moments pinned, kernels A, C and D
+               launched; step s and device peak beside 5b's. A host that
+               cannot pin the moments cuts the LLaMA's layers (logged);
+  13. the visualizer's training path:
+     13a. a 4-level UNet at small widths, the tiny VAE and a 2-layer mlp
+               adapter made on the CPU and copied to the card (fp32, TF32
+               off): the loss (1e-5 relative) and the adapter and UNet
+               gradients (1e-4 of max |g|) with the same draws, then 3
+               adapter-only and 2 `unfreeze_unet` steps (losses 1e-5, the
+               trees within Adam's 2 * lr * steps);
+     13b. at SD-1.5 width (phase 12's configs, fp32, 512 px, random
+               weights, seed 0): 5 adapter-only steps, then 3 with the UNet
+               unfrozen, at JAX's batch of 24 or the largest of 16, 8, 4
+               predicted to fit (from the peaks at 2 and 4 images; each
+               cut logged): step s, images/s, peak memory,
+               busy share, FLOPs from the shapes and their share of 989
+               TFLOP/s; the losses finite;
+     13c. `python -m metamorph_tpu_torch.visualizer.main` on two tar
+               shards of PNGs (one member corrupt) and a random SO400M
+               SigLIP written in HF layout, 3 steps: the directory reloads,
+               the adapter trained, the UNet and VAE bitwise their seeds'
+               init; the SigLIP encode's ms per image. In a temporary
+               directory, deleted whatever happens (~5.5 GB written).
 The phases run in the order 1-3c, 10b, 11a, 4, 5, 5d, 10, 11b-11d, 12, 9a,
-5b, 9b-9e, 5c, 8 (with 11d's `evaluate`).
+5b, 9b-9e, 5e, 13, 5c, 8 (with 11d's `evaluate`).
 
 The last two lines of stdout are the kernel summary JSON and
 {"ok": true, "device": {...}}; the whole script's wall time is printed
@@ -3847,9 +3876,550 @@ def phase_visualizer(torch, dev, model, cfg, reqs, smi: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the visualizer's training path; 5e: offload_optimizer at 8B
+# ---------------------------------------------------------------------------
+
+VIS_TRAIN_LOSS_RTOL = 1e-5   # 13a: the loss, fp32 card (TF32 off) vs CPU
+VIS_TRAIN_GRAD_TOL = 1e-4    # 13a: gradients, of the tree's max |g|
+# 13a: SD-1.5's 4-level topology at small widths (SMALL4 of
+# tests/test_torch_visualizer.py), the tiny VAE, a 2-layer mlp adapter
+VIS_CHECK_UNET = dict(block_out_channels=(8, 16, 24, 24), layers_per_block=2,
+                      cross_attention_dim=8, attention_head_dim=2,
+                      norm_groups=4, attn_levels=(True, True, True, False))
+VIS_CHECK_TC = dict(cfg_prob=0.5, noise_offset=0.05, learning_rate=1e-3,
+                    unet_lr=5e-4, total_steps=40)
+VIS_TRAIN_BATCHES = (24, 16, 8, 4)  # 13b: JAX's default first, then cuts
+VIS_TRAIN_MEM_SHARE = 0.9   # 13b: the predicted peak's limit, of the card
+VIS_TRAIN_RES = 512
+VIS_TRAIN_STEPS = {"adapter_only": 5, "unfreeze_unet": 3}
+VIS_CLI_BATCH = 8       # 13c: at most, so its data stays near seconds
+OFFLOAD_STEPS = 3
+GIB = 1 << 30
+
+
+def vis_state_to(state: dict, dev) -> dict:
+    """A copy of a visualizer train state on `dev`."""
+    out = {k: state[k].copy_to(dev) for k in ("adapter", "unet", "vae")}
+    for k in ("opt_adapter", "opt_unet"):
+        o = state[k]
+        out[k] = {"count": o["count"],
+                  **{m: {n: t.to(dev, copy=True) for n, t in o[m].items()}
+                     for m in ("mu", "nu")}}
+    return out
+
+
+def tree_max_err(torch, a, b) -> float:
+    """max |a - b| over the parameters of two trees (b on the CPU)."""
+    want = dict(b.named_parameters())
+    return max((p.detach().cpu() - want[n]).abs().max().item()
+               for n, p in a.named_parameters())
+
+
+def phase_vis_train_check(torch, dev) -> dict:
+    """13a: the visualizer's loss, gradients and train steps on the card
+    (fp32, TF32 off) against the CPU, from one state made on the CPU and
+    copied, with the same draws (a CPU generator feeds both): the loss and
+    the adapter and UNet gradients, then 3 adapter-only steps and 2
+    `unfreeze_unet` steps, losses every step and the trees after."""
+    from metamorph_tpu_torch.train.optimizer import PlainAdamW
+    from metamorph_tpu_torch.visualizer import adapter as va
+    from metamorph_tpu_torch.visualizer import train as vt
+    from metamorph_tpu_torch.visualizer import unet as vu
+    from metamorph_tpu_torch.visualizer import vae as vv
+    from metamorph_tpu_torch.visualizer.scheduler import DDPMScheduler
+
+    ucfg, vcfg = vu.UNetConfig(**VIS_CHECK_UNET), vv.VAEConfig.tiny()
+    cpu = torch.device("cpu")
+    trees = dict(adapter=va.init_adapter("mlp", input_dim=32, hidden_dim=32,
+                                         output_dim=ucfg.cross_attention_dim,
+                                         num_layers=2, seed=0, device=cpu),
+                 unet=vu.init_unet_params(ucfg, 1, cpu),
+                 vae=vv.init_vae_params(vcfg, 2, cpu))
+    states = {"cpu": {**trees,
+                      "opt_adapter": PlainAdamW.init(trees["adapter"]),
+                      "opt_unet": PlainAdamW.init(trees["unet"])}}
+    states["card"] = vis_state_to(states["cpu"], dev)
+    g = torch.Generator().manual_seed(13)
+    emb = torch.randn(2, 4, 32, generator=g)
+    img = torch.rand(2, 16, 16, 3, generator=g) * 2 - 1
+    where = {"cpu": cpu, "card": dev}
+    tc = vt.VisualizerTrainConfig(**VIS_CHECK_TC)
+    row = {"grads": {}}
+    out = {}
+    for side, st in states.items():
+        st["adapter"].requires_grad_(True)
+        st["unet"].requires_grad_(True)
+        loss = vt.visualizer_loss(st["adapter"], st["unet"], st["vae"],
+                                  (tc, ucfg, vcfg, DDPMScheduler()),
+                                  emb.to(where[side]), img.to(where[side]),
+                                  torch.Generator().manual_seed(100))
+        loss.backward()
+        out[side] = (float(loss.detach()), {
+            t: {n: p.grad.detach().cpu() for n, p in st[t].named_parameters()}
+            for t in ("adapter", "unet")})
+        for t in ("adapter", "unet"):
+            st[t].requires_grad_(False)
+            for p in st[t].parameters():
+                p.grad = None
+    row["loss"] = [out["cpu"][0], out["card"][0]]
+    bad = []
+    if abs(out["card"][0] - out["cpu"][0]) > VIS_TRAIN_LOSS_RTOL * abs(
+            out["cpu"][0]):
+        bad.append("loss")
+    for t in ("adapter", "unet"):
+        ref, got = out["cpu"][1][t], out["card"][1][t]
+        scale = max(x.abs().max().item() for x in ref.values())
+        err = max((got[n] - ref[n]).abs().max().item() for n in ref)
+        row["grads"][t] = dict(max_abs_err=err, max_abs_grad=scale)
+        if not err <= VIS_TRAIN_GRAD_TOL * scale:
+            bad.append(f"{t} gradient")
+
+    steps, n = {}, 0
+    for name, count, unfreeze in (("adapter_only", 3, False),
+                                  ("unfreeze_unet", 2, True)):
+        step, _ = vt.make_visualizer_train_step(
+            vt.VisualizerTrainConfig(unfreeze_unet=unfreeze, **VIS_CHECK_TC),
+            ucfg, vcfg)
+        losses = {side: [] for side in states}
+        for i in range(count):
+            for side, st in states.items():
+                _, loss = step(st, emb.to(where[side]), img.to(where[side]),
+                               torch.Generator().manual_seed(200 + n))
+                losses[side].append(float(loss))
+            n += 1
+        steps[name] = losses
+        if any(abs(a - b) > VIS_TRAIN_LOSS_RTOL * abs(a)
+               for a, b in zip(losses["cpu"], losses["card"])):
+            bad.append(f"{name} losses")
+    row["steps"] = steps
+    # Adam's first updates are near lr * sign(m / sqrt(v)): a gradient that
+    # differs in its low bits can flip a near-zero entry's sign
+    atol = {"adapter": 2 * tc.learning_rate * 5 + 1e-6,
+            "unet": 2 * tc.unet_lr * 2 + 1e-6, "vae": 0.0}
+    row["trees"] = {}
+    for t, tol in atol.items():
+        err = tree_max_err(torch, states["card"][t], states["cpu"][t])
+        row["trees"][t] = dict(max_abs_err=err, atol=tol)
+        if err > tol:
+            bad.append(f"{t} after the steps")
+    log("visualizer train 13a", json.dumps(row))
+    if bad:
+        raise AssertionError(f"visualizer train 13a: card vs CPU: {bad}")
+    return row
+
+
+def vis_train_flops(torch, ucfg, vcfg, akw, B: int, unfreeze: bool,
+                    res: int) -> int:
+    """FLOPs of one visualizer train step counted from the shapes
+    (`unet_step_flops` extended to the step): the VAE encode, the adapter
+    forward and backward, the UNet forward and its backward to the
+    conditioning, plus the UNet's weight gradients when it is unfrozen
+    (torch.utils.flop_counter on "meta" tensors, nothing computed)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from metamorph_tpu_torch.visualizer import adapter as va
+    from metamorph_tpu_torch.visualizer import unet as vu
+    from metamorph_tpu_torch.visualizer import vae as vv
+
+    meta = dict(device="meta")
+    a = va.init_adapter(akw["mode"], output_dim=ucfg.cross_attention_dim,
+                        **meta)
+    u = vu.init_unet_params(ucfg, **meta)
+    v = vv.init_vae_params(vcfg, **meta)
+    a.requires_grad_(True)
+    u.requires_grad_(unfreeze)
+    emb = torch.empty(B, 64, 1152, **meta)
+    img = torch.empty(B, res, res, 3, **meta)
+    with FlopCounterMode(display=False) as fc:
+        with torch.no_grad():
+            lat = vv.vae_encode(v, vcfg, img)
+        cond = va.pad_tokens(va.apply_adapter(a, emb, mode=akw["mode"]), 77)
+        pred = vu.unet_apply(u, ucfg, lat,
+                             torch.zeros(B, dtype=torch.int64, **meta), cond)
+        ((pred.float() - lat) ** 2).mean().backward()
+    return fc.get_total_flops()
+
+
+def fit_vis_batch(torch, dev, state, tc, ucfg, vcfg, inputs):
+    """The first of VIS_TRAIN_BATCHES whose step is predicted to fit in
+    VIS_TRAIN_MEM_SHARE of the card: the peak of a loss and backward
+    (where the step peaks; the update after it adds per-tensor
+    temporaries only) is measured at 2 and 4 images and extended linearly.
+    Returns (batch, the cuts with their predicted peaks, the measured
+    peaks). A batch is never tried to find out: an out-of-memory error
+    does not give its memory back reliably."""
+    from metamorph_tpu_torch.visualizer import train as vt
+    from metamorph_tpu_torch.visualizer.scheduler import DDPMScheduler
+
+    trained = ("adapter", "unet") if tc.unfreeze_unet else ("adapter",)
+    peaks = {}
+    for B in (2, 4):
+        for name in ("adapter", "unet", "vae"):
+            state[name].requires_grad_(name in trained)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = vt.visualizer_loss(
+            state["adapter"], state["unet"], state["vae"],
+            (tc, ucfg, vcfg, DDPMScheduler()), *inputs(B),
+            torch.Generator(device=dev).manual_seed(99))
+        loss.backward()
+        del loss
+        torch.cuda.synchronize()
+        peaks[B] = torch.cuda.max_memory_allocated()
+        for name in trained:
+            for p in state[name].parameters():
+                p.grad = None
+        free_memory(torch)
+    per_image = (peaks[4] - peaks[2]) / 2
+    limit = VIS_TRAIN_MEM_SHARE * torch.cuda.get_device_properties(
+        dev).total_memory
+    cuts = []
+    for B in VIS_TRAIN_BATCHES:
+        need = peaks[4] + per_image * (B - 4)
+        if need <= limit:
+            return B, cuts, {k: v / GIB for k, v in peaks.items()}
+        cuts.append({"batch_size": B, "predicted_peak_gib": need / GIB})
+        log(f"visualizer train 13b: batch {B} would peak at "
+            f"{need / GIB:.2f} GiB, over {limit / GIB:.2f}")
+    raise AssertionError(f"visualizer train 13b: no batch fits: {cuts}")
+
+
+def phase_vis_train(torch, dev, smi: str) -> dict:
+    """13b: the visualizer's train step at SD-1.5 width (`vis_configs`:
+    UNet 859.5 M, VAE 83.7 M, mlp adapter 75.0 M parameters), fp32 at
+    512 px, random weights from seed 0 and random inputs: 5 adapter-only
+    steps, then 3 with `unfreeze_unet`, each at the largest batch of
+    VIS_TRAIN_BATCHES predicted to fit; step s, images/s, peak memory, busy
+    share over one profiled step, FLOPs and their share of 989 TFLOP/s."""
+    import dataclasses
+
+    from metamorph_tpu_torch.visualizer import train as vt
+
+    ucfg, vcfg, akw = vis_configs()
+    tc0 = vt.VisualizerTrainConfig(adapter_mode=akw["mode"])
+    _, init = vt.make_visualizer_train_step(tc0, ucfg, vcfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = init(0, device=dev)
+    torch.cuda.synchronize()
+    row = {"smi": smi, "init_s": time.perf_counter() - t,
+           "params_m": [sum(p.numel() for p in state[k].parameters()) / 1e6
+                        for k in ("adapter", "unet", "vae")],
+           "state_gib": torch.cuda.memory_allocated() / GIB}
+    g = torch.Generator(device=dev).manual_seed(14)
+
+    def inputs(B):
+        emb = torch.randn(B, tc0.num_tokens, 1152, generator=g, device=dev)
+        img = torch.rand(B, VIS_TRAIN_RES, VIS_TRAIN_RES, 3, generator=g,
+                         device=dev) * 2 - 1
+        return emb / emb.norm(dim=-1, keepdim=True), img
+
+    for name, n_steps in VIS_TRAIN_STEPS.items():
+        tc = dataclasses.replace(tc0, unfreeze_unet=name == "unfreeze_unet")
+        step, _ = vt.make_visualizer_train_step(tc, ucfg, vcfg)
+        B, cuts, probe = fit_vis_batch(torch, dev, state, tc, ucfg, vcfg,
+                                       inputs)
+        emb, img = inputs(B)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(n_steps):
+            gen = torch.Generator(device=dev).manual_seed(i)
+            t = time.perf_counter()
+            state, loss = step(state, emb, img, gen)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / GIB
+        gen = torch.Generator(device=dev).manual_seed(n_steps)
+        _, kernel_ms, busy_ms, wall_ms = profiled_spans(
+            torch, lambda: step(state, emb, img, gen))
+        flops = vis_train_flops(torch, ucfg, vcfg, akw, B,
+                                name == "unfreeze_unet", VIS_TRAIN_RES)
+        step_s = statistics.median(times[1:])
+        r = dict(batch_size=B, probe_peak_gib=probe, step_s=times,
+                 step_s_median=step_s,
+                 images_per_s=B / step_s, peak_gib=peak, losses=losses,
+                 profiled_step_wall_ms=wall_ms, kernel_ms=kernel_ms,
+                 busy_ms=busy_ms, busy=busy_ms / wall_ms,
+                 step_tflop=flops / 1e12, tflops=flops / step_s / 1e12,
+                 share_of_989=flops / step_s / 1e12 / PEAK_BF16_TFLOPS)
+        if cuts:
+            r["reduced"] = {"batch_size": f"{tc0.batch_size} -> {B}",
+                            "cuts": cuts}
+        row[name] = r
+        log(f"visualizer train 13b ({name})", json.dumps(r))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"visualizer train 13b ({name}): losses "
+                                 f"{losses}")
+        del emb, img
+        free_memory(torch)
+    del state
+    free_memory(torch)
+    return row
+
+
+def write_png_shards(d: str, n_shards: int = 2, per: int = 8,
+                     side: tuple = (384, 448)) -> list:
+    """Tar shards of random PNGs (and a caption member each); the first
+    shard also holds a corrupt image, which the CLI must skip."""
+    import io
+    import tarfile
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(15)
+    paths = []
+    for s in range(n_shards):
+        members = []
+        for i in range(per):
+            buf = io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, (*side, 3), np.uint8)).save(
+                buf, format="PNG")
+            members.append((f"{s:02d}_{i:03d}.png", buf.getvalue()))
+            members.append((f"{s:02d}_{i:03d}.txt", b"a caption"))
+        if s == 0:
+            members.insert(2, ("00_bad.png", b"\x89PNG\r\n\x1a\ntruncated"))
+        path = os.path.join(d, f"shard_{s:02d}.tar")
+        with tarfile.open(path, "w") as tf:
+            for name, data in members:
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+        paths.append(path)
+    return paths
+
+
+def phase_vis_cli(torch, dev, batch: int) -> dict:
+    """13c: `python -m metamorph_tpu_torch.visualizer.main` end to end on
+    the card: two tar shards of PNGs (one corrupt member), a random
+    SO400M SigLIP in HF layout (`siglip_params_to_hf`, fp32), 3 steps at
+    `batch`, then the directory through `load_visualization`: the adapter
+    trained, the UNet and VAE bitwise their seeds' init. Also the SigLIP
+    encode's ms per image (fp32, `batch` images queued). Everything in a
+    temporary directory, deleted whatever happens."""
+    from metamorph_tpu_torch.config import MultimodalConfig, SiglipConfig
+    from metamorph_tpu_torch.inference import loader
+    from metamorph_tpu_torch.models.hf_import import siglip_params_to_hf
+    from metamorph_tpu_torch.models.siglip import Siglip, vision_tower_forward
+    from metamorph_tpu_torch.utils.safetensors_io import save_file
+    from metamorph_tpu_torch.visualizer import train as vt
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_vis_train_")
+    row = {"batch_size": batch}
+    try:
+        with open(os.path.join(d, "shards.json"), "w") as f:
+            json.dump(write_png_shards(d), f)
+        sc = SiglipConfig()
+        sig = Siglip(sc, dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        with torch.no_grad():
+            for p in sig.parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+        os.makedirs(os.path.join(d, "siglip"))
+        t = time.perf_counter()
+        row["siglip_bytes"] = save_file(
+            siglip_params_to_hf(sig),
+            os.path.join(d, "siglip", "model.safetensors"))
+        row["siglip_save_s"] = time.perf_counter() - t
+        mm = MultimodalConfig(num_image_tokens=64, normalize_vision=True)
+        px = torch.rand(batch, sc.image_size, sc.image_size, 3, generator=gen,
+                        device=dev) * 2 - 1
+        with torch.no_grad():
+            row["siglip_encode_ms_per_image"] = cuda_ms(
+                lambda: vision_tower_forward(sig, sc, mm, px), calls=3,
+                reps=3) / batch
+        del sig, px
+        free_memory(torch)
+
+        out = os.path.join(d, "vis")
+        cmd = [sys.executable, "-m", "metamorph_tpu_torch.visualizer.main",
+               "--shards", os.path.join(d, "shards.json"),
+               "--siglip", os.path.join(d, "siglip"), "--output-dir", out,
+               "--batch-size", str(batch), "--total-steps", "3",
+               "--save-steps", "3"]
+        env = {**os.environ, "PYTHONPATH": ROOT}
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=900)
+        row["cli_s"] = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"visualizer train 13c: the CLI exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        a, u, v, ucfg, vcfg, mode = loader.load_visualization(out, device=dev)
+        want_u, want_v, _ = vis_configs()
+        _, init = vt.make_visualizer_train_step(vt.VisualizerTrainConfig(),
+                                                want_u, want_v)
+        s0 = init(0, device=dev)
+
+        def differ(tree, ref):
+            want = dict(ref.named_parameters())
+            return [n for n, p in tree.named_parameters()
+                    if not torch.equal(p, want[n])]
+
+        row.update(files=sorted(os.listdir(out)),
+                   adapter_changed=len(differ(a, s0["adapter"])),
+                   adapter_params=len(list(a.parameters())),
+                   unet_changed=differ(u, s0["unet"]),
+                   vae_changed=differ(v, s0["vae"]))
+        log("visualizer train 13c", json.dumps(row))
+        if (ucfg, vcfg, mode) != (want_u, want_v, "mlp") or \
+                not row["adapter_changed"] or row["unet_changed"] or \
+                row["vae_changed"] or "metrics.jsonl" not in row["files"]:
+            raise AssertionError(f"visualizer train 13c: {row}")
+        del a, u, v, s0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    free_memory(torch)
+    return row
+
+
+def host_memory_gib() -> dict:
+    """MemTotal and MemAvailable of /proc/meminfo, in GiB."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key = line.split(":")[0]
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(line.split()[1]) / 2**20
+    return out
+
+
+def copy_rates(torch, dev) -> dict:
+    """Host <-> card copy rates of one pinned GiB (CUDA events, 5 copies
+    each way queued)."""
+    host = torch.empty(GIB, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(GIB, dtype=torch.uint8, device=dev)
+    row = {}
+    for name, dst, src in (("h2d", card, host), ("d2h", host, card)):
+        row[f"{name}_gb_per_s"] = GIB / 1e6 / cuda_ms(
+            lambda: dst.copy_(src, non_blocking=True), calls=5, reps=3)
+    return row
+
+
+def phase_offload(torch, dev, train_row) -> dict:
+    """5e: `offload_optimizer` on 5b's 8B stage-2 cut: the host probed
+    (/proc/meminfo, the moments' bytes from the trainable mask, host <->
+    card copy rates), then 3 steps with the moments in pinned host memory
+    and 3 with them on the card, each from seed 0's weights on 5b's batch:
+    losses and every parameter bitwise equal (checksums), the moments
+    pinned, step s and device peak beside 5b's. Where the host cannot pin
+    the moments, the LLaMA's layers are cut by a quarter at a time until
+    it can, and each cut is logged with its error."""
+    import dataclasses
+
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.models.metamorph import MetaMorph
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.ops import flash_attention as fa
+    from metamorph_tpu_torch.train import train_step as TS
+    from metamorph_tpu_torch.train.optimizer import (make_optimizer,
+                                                     trainable_mask)
+    from metamorph_tpu_torch.train.profile_train import (packed_row,
+                                                         stage2_one_card)
+
+    cfg, reduced = stage2_one_card(4096)
+    reduced = dict(reduced)
+
+    def moment_bytes(c):
+        m = MetaMorph(c, dtype=torch.bfloat16, device="meta")
+        mask = trainable_mask(m, c.train)
+        return 2 * sum(p.numel() * p.element_size()
+                       for n, p in m.named_parameters() if mask[n])
+
+    row = {"host": host_memory_gib(), "moment_gib": moment_bytes(cfg) / GIB,
+           **copy_rates(torch, dev)}
+    log("offload 5e: host", json.dumps(row))
+    T, K, N = cfg.train.max_seq_len, cfg.mm.num_image_tokens, \
+        cfg.train.max_images_per_batch
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+
+    def run(offload: bool) -> dict:
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, offload_optimizer=offload))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = init_params(c, seed=0, device=dev, dtype=torch.bfloat16)
+        state = TS.init_train_state(model, c)
+        tx = make_optimizer(c.train, model)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 batch_to_arrays(packed_row(T, K, N, seed=21)).items()}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        s = c.siglip.image_size
+        pixels = torch.randn((N, s, s, 3), generator=gen, device=dev)
+        for kern in kernels:
+            kern.launches = 0
+        times, losses = [], []
+        for _ in range(OFFLOAD_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = TS.train_step(state, batch, pixels, c, tx)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        out = dict(step_s=times, losses=losses,
+                   peak_gib=torch.cuda.max_memory_allocated() / GIB,
+                   launches={k.symbol: k.launches for k in kernels},
+                   sums={n: tensor_checksum(torch, p)
+                         for n, p in model.named_parameters()})
+        moments = [t for k in ("mu", "nu")
+                   for t in state["opt_state"][k].values()]
+        out["moments_pinned"] = all(t.is_pinned() for t in moments)
+        out["moments_on_card"] = sum(t.is_cuda for t in moments)
+        if offload:
+            out["host_after_steps"] = host_memory_gib()
+        del model, state, tx, batch, pixels, moments
+        free_memory(torch)
+        return out
+
+    while True:
+        try:
+            off = run(True)
+            break
+        except RuntimeError as e:
+            if "offload_optimizer: could not pin" not in str(e) or \
+                    cfg.llama.num_layers == 1:
+                raise
+            err = str(e).splitlines()[0][:300]
+        free_memory(torch)
+        L = cfg.llama.num_layers * 3 // 4
+        log(f"offload 5e: {err}; layers {cfg.llama.num_layers} -> {L}")
+        reduced["llama.num_layers"] = L
+        reduced.setdefault("pin_errors", []).append(err)
+        cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+            cfg.llama, num_layers=L))
+        row["moment_gib"] = moment_bytes(cfg) / GIB
+    on_card = run(False)
+    differ = [n for n in on_card["sums"]
+              if on_card["sums"][n] != off["sums"][n]]
+    row.update(reduced=reduced, steps=OFFLOAD_STEPS,
+               on_card={k: v for k, v in on_card.items() if k != "sums"},
+               offload={k: v for k, v in off.items() if k != "sums"},
+               params_differing=len(differ), params=len(off["sums"]),
+               step_s_median=statistics.median(off["step_s"][1:]),
+               on_card_step_s_median=statistics.median(on_card["step_s"][1:]),
+               train_main_step_s=train_row["step_s_median_2_4"],
+               train_main_peak_gib=train_row["peak_mem_gib"],
+               launches=off["launches"])
+    log("offload 5e", json.dumps(row))
+    if off["losses"] != on_card["losses"] or differ or \
+            not off["moments_pinned"] or off["moments_on_card"] or \
+            min(off["launches"].values()) <= 0:
+        raise AssertionError(f"offload 5e: offloaded against on-card: "
+                             f"losses {off['losses']} / {on_card['losses']}, "
+                             f"{len(differ)} parameters differ "
+                             f"({differ[:3]}), "
+                             f"pinned {off['moments_pinned']}, launches "
+                             f"{off['launches']}")
+    return row
+
+
 def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                    options_rows, decode_row, train_row, recipe_row,
-                   weights_row, w8_rows, p11_launches, vis_launches) -> dict:
+                   weights_row, w8_rows, p11_launches, vis_launches,
+                   offload_launches) -> dict:
     """The summary line: one entry per kernel, its launches on the main
     paths (summed, and by path), its worst error, and its time, plain time,
     bound and library time at the main-path shape (kernels B and E also at
@@ -3874,6 +4444,7 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                  "decode_frontends": decode, "int8_prefix_eval": p11,
                  "visualizer": vis,
                  "train_main": tl.get(symbol, 0),
+                 "offload": offload_launches.get(symbol, 0),
                  "recipe_data_path": rl.get(symbol, 0),
                  "weights": wl.get(symbol, 0)}
         return {"launches": sum(paths.values()),
@@ -4105,6 +4676,11 @@ def main() -> int:
         raise AssertionError(f"could not delete {weights_dir}")
     del reqs, plain_run
     free_memory(torch)
+    offload_row = phase_offload(torch, dev, train_row)
+    phase_vis_train_check(torch, dev)
+    vis_train_row = phase_vis_train(torch, dev, smi)
+    phase_vis_cli(torch, dev, min(
+        vis_train_row["adapter_only"]["batch_size"], VIS_CLI_BATCH))
     phase_trainer(torch, dev)
     recipe_row = phase_recipe_main(torch, dev, train_row)
     phase_recipe_small(torch, dev)
@@ -4119,7 +4695,8 @@ def main() -> int:
     summary = kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows,
                              main_row, options_rows, decode_row, train_row,
                              recipe_row, weights_row, w8_rows, p11,
-                             vis_row["decode"]["launches"])
+                             vis_row["decode"]["launches"],
+                             offload_row["launches"])
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps(summary))

@@ -17,7 +17,9 @@ parameters leaf by leaf.
 
 `visualizer_from_jax_params` / `visualizer_to_jax_params` carry the
 diffusion visualizer's three trees (adapter, UNet, VAE) across the same
-way, conv kernels between JAX's HWIO and torch's [out, in, kh, kw].
+way, conv kernels between JAX's HWIO and torch's [out, in, kh, kw];
+`visualizer_train_state_from_jax` carries a whole visualizer train state
+(the trees and both optax `adamw` states) into the port's.
 
 `init_params` (and `init_llama`, for a bare LLaMA) makes random weights
 on the device from a seed, at the scales the JAX initializers use
@@ -388,3 +390,41 @@ def visualizer_to_jax_params(adapter, unet, vae):
     from metamorph_tpu_torch.visualizer.params import tree_to_jax
 
     return tuple(tree_to_jax(t) for t in (adapter, unet, vae))
+
+
+def _adamw_state_from_jax(opt_state, device) -> dict:
+    """An optax `adamw` chain state -> the port's {"count", "mu", "nu"},
+    moments keyed like the module's parameters. The chain state is a
+    tuple of named tuples: the one with `mu` and `nu` is scale_by_adam's,
+    and every `count` field holds the step count."""
+    from metamorph_tpu_torch.visualizer.params import tree_from_jax
+
+    fields = [(s, getattr(s, "_fields", ())) for s in opt_state]
+    counts = {int(np.asarray(s.count)) for s, f in fields if "count" in f}
+    adam = [s for s, f in fields if "mu" in f and "nu" in f]
+    if len(counts) != 1 or len(adam) != 1:
+        raise ValueError(f"not an adamw state: counts {counts}, "
+                         f"{len(adam)} moment states")
+
+    def moments(tree):
+        return {n: p.data for n, p in
+                tree_from_jax(tree, device).named_parameters()}
+
+    return {"count": counts.pop(), "mu": moments(adam[0].mu),
+            "nu": moments(adam[0].nu)}
+
+
+def visualizer_train_state_from_jax(state: Mapping[str, Any], device="cuda"
+                                    ) -> dict:
+    """JAX's visualizer train state ({adapter, unet, vae, opt_adapter,
+    opt_unet}, from `make_visualizer_train_step`'s init or its steps) ->
+    the port's, on `device` (the card unless the caller passes another):
+    the trees through `visualizer_from_jax_params`, each adamw state's
+    count and moments bit for bit."""
+    device = resolve_device(device)
+    trees = visualizer_from_jax_params(
+        *(state[k] for k in ("adapter", "unet", "vae")), device=device)
+    out = dict(zip(("adapter", "unet", "vae"), trees))
+    for k in ("opt_adapter", "opt_unet"):
+        out[k] = _adamw_state_from_jax(state[k], device)
+    return out

@@ -72,12 +72,12 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 @torch.no_grad()
 def restore_train_state(path: str, template: dict) -> dict:
-    """Restore into the template state in place (its devices and dtypes)
-    and return it."""
+    """Restore into the template state in place (its devices and dtypes:
+    offloaded moments stay in their pinned host tensors) and return it.
+    The file is mapped on the host and copied tensor by tensor."""
     model = template["params"]
-    device = next(model.parameters()).device
-    saved = torch.load(os.path.join(path, "state.pt"), map_location=device,
-                       weights_only=True)
+    saved = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                       mmap=True, weights_only=True)
     model.load_state_dict(saved["params"])
     opt = template["opt_state"]
     for key in ("mu", "nu"):

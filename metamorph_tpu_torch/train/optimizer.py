@@ -13,13 +13,25 @@
   4. frozen parameters get no moments.
 The moments take the parameter dtype (bf16 on the card), as optax's do.
 The update runs per tensor, in fp32 on flat chunks of at most 256 MB, so
-the temporaries stay small next to 8B parameters.
+the temporaries stay small next to 8B parameters; `adamw_chunk_` is that
+update, shared with `PlainAdamW` (optax's plain `adamw`, which the
+visualizer trains with).
+
+With `offload_optimizer` (the JAX package's `pinned_host` moments,
+`metamorph_tpu/train/train_step.py:126`) the moments live in pinned host
+memory and each step streams them through the card one chunk at a time
+(`_Offload`): the same arithmetic on the same bits, so the result is
+bitwise that of the moments kept on the card. JAX fetches the whole
+moment tree into the step; the port overlaps chunk i + 1's copy with
+chunk i's update instead. On the CPU the moments are plain host tensors
+and the same streaming code runs without streams.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
 from torch import nn
@@ -113,12 +125,155 @@ def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
         yield flat[s:s + CHUNK]
 
 
+@torch.no_grad()
+def adamw_chunk_(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
+                 nu: torch.Tensor, lr: float, count: int, b1: float,
+                 b2: float, eps: float, wd: float) -> None:
+    """One AdamW step on a chunk, in place and in fp32, whatever the
+    tensors' dtype: the moments' EMAs, Adam's update with the bias
+    correction at count + 1 and eps outside the sqrt (eps_root 0), the
+    decoupled weight decay (none when wd is 0), then p -= lr * update.
+    p, mu and nu are written back in their own dtypes."""
+    bc1 = 1 - b1 ** (count + 1)
+    bc2 = 1 - b2 ** (count + 1)
+    g32 = g.float()
+    m32 = (1 - b1) * g32 + b1 * mu.float()
+    v32 = (1 - b2) * g32 * g32 + b2 * nu.float()
+    u = (m32 / bc1) / ((v32 / bc2).sqrt() + eps)
+    p32 = p.float()
+    if wd:
+        u = u + wd * p32
+    p.copy_(p32 - lr * u)
+    mu.copy_(m32)
+    nu.copy_(v32)
+
+
+def pinned_zeros(numel: int, dtype: torch.dtype) -> torch.Tensor:
+    """`numel` zeros in pinned host memory; raises when the host cannot
+    pin them (never falls back to pageable memory)."""
+    try:
+        return torch.zeros(numel, dtype=dtype, pin_memory=True)
+    except RuntimeError as e:
+        gib = numel * dtype.itemsize / 2**30
+        raise RuntimeError(f"offload_optimizer: could not pin {gib:.3f} GiB "
+                           f"of host memory for the AdamW moments: {e}") from e
+
+
+def zero_moments(named, offload: bool) -> Dict[str, torch.Tensor]:
+    """A zero moment for each (name, parameter): beside it, or with
+    `offload` on the host. Offloaded moments of parameters on the card are
+    views of one pinned buffer per dtype: one allocation, where one per
+    tensor would each be rounded up to a power of two by the pinned
+    allocator."""
+    named = list(named)
+    if not offload:
+        return {n: torch.zeros_like(p) for n, p in named}
+    views = {}
+    for dtype in {p.dtype for _, p in named}:
+        group = [(n, p) for n, p in named if p.dtype == dtype]
+        total = sum(p.numel() for _, p in group)
+        flat = (pinned_zeros(total, dtype) if group[0][1].is_cuda
+                else torch.zeros(total, dtype=dtype))
+        start = 0
+        for n, p in group:
+            views[n] = flat[start:start + p.numel()].view(p.shape)
+            start += p.numel()
+    return {n: views[n] for n, _ in named}
+
+
+class _Offload:
+    """Streams host moments through the device for `adamw_chunk_`: two
+    device staging slots (mu, nu) per dtype, a load stream (host -> device)
+    and a store stream (device -> host), so both PCIe directions run at
+    once. Chunk i's update waits on its load, its store waits on its
+    update, and load(i + 2) waits on store(i), which frees the slot; load
+    (i + 1) is queued before chunk i's update, so it crosses PCIe while
+    chunk i is updated. Each host chunk (a slice of the moment itself) is
+    read and written once per step. On the CPU the copies are plain
+    copies, in order."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.load_stream = torch.cuda.Stream(device) if self.cuda else None
+        self.store_stream = torch.cuda.Stream(device) if self.cuda else None
+        self.slots: Dict[torch.dtype, List[Tuple[torch.Tensor, ...]]] = {}
+
+    def _slot(self, dtype: torch.dtype, i: int):
+        if dtype not in self.slots:
+            self.slots[dtype] = [
+                (torch.empty(CHUNK, dtype=dtype, device=self.device),
+                 torch.empty(CHUNK, dtype=dtype, device=self.device))
+                for _ in range(2)]
+            if self.cuda:
+                # the slots come from the main stream's pool, which hands
+                # out memory that kernels still queued there may write:
+                # the copy streams touch them only after those kernels
+                self.load_stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+        return self.slots[dtype][i % 2]
+
+    def _on(self, stream):
+        return (torch.cuda.stream(stream) if self.cuda
+                else contextlib.nullcontext())
+
+    def _copy(self, stream, after, pairs):
+        """dst.copy_(src) for each pair on `stream`, once the event `after`
+        (if any) has passed; returns the event of their end."""
+        with self._on(stream):
+            if after is not None:
+                stream.wait_event(after)
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=True)
+            if not self.cuda:
+                return None
+            ev = torch.cuda.Event()
+            ev.record(stream)
+            return ev
+
+    @torch.no_grad()
+    def run(self, items, step) -> None:
+        """items: (p, g, mu_host, nu_host) chunks; step(i, p, g, mu, nu)
+        updates chunk i with device-side moments."""
+        main = torch.cuda.current_stream(self.device) if self.cuda else None
+        stored = [None, None]       # the last store of each slot
+        loaded = [None, None]
+
+        def load(i):
+            _, _, mh, nh = items[i]
+            md, nd = (b[:mh.numel()] for b in self._slot(mh.dtype, i))
+            loaded[i % 2] = self._copy(self.load_stream, stored[i % 2],
+                                       ((md, mh), (nd, nh)))
+            return md, nd
+
+        nxt = load(0) if items else None
+        for i, (p, g, mh, nh) in enumerate(items):
+            md, nd = nxt
+            ready = loaded[i % 2]
+            if i + 1 < len(items):
+                nxt = load(i + 1)
+            if self.cuda:
+                main.wait_event(ready)
+            step(i, p, g, md, nd)
+            updated = None
+            if self.cuda:
+                updated = torch.cuda.Event()
+                updated.record(main)
+            stored[i % 2] = self._copy(self.store_stream, updated,
+                                       ((mh, md), (nh, nd)))
+        if self.cuda:
+            # the host moments are read (checkpoints, the next step) only
+            # after every store has landed
+            self.store_stream.synchronize()
+
+
 class AdamW:
     """The optax chain of `metamorph_tpu/train/optimizer.py:make_optimizer`
     over a module's parameters. `init` makes the state ({"count", "mu",
-    "nu"}, moments for trainable parameters only); `update` applies one
-    step in place from the parameters' `.grad` and returns the global norm
-    of the raw trainable gradients."""
+    "nu"}, moments for trainable parameters only; on the host with
+    `cfg.offload_optimizer`); `update` applies one step in place from the
+    parameters' `.grad` and returns the global norm of the raw trainable
+    gradients."""
 
     def __init__(self, cfg: TrainConfig, model: nn.Module):
         self.cfg = cfg
@@ -131,14 +286,16 @@ class AdamW:
             "vision_tower": make_schedule(
                 cfg, cfg.vision_tower_lr or cfg.learning_rate),
         }
+        self._offload = None
 
     def trainable(self, model: nn.Module):
         return [(n, p) for n, p in model.named_parameters() if self.mask[n]]
 
     def init(self, model: nn.Module) -> dict:
+        off = self.cfg.offload_optimizer
         return {"count": 0,
-                "mu": {n: torch.zeros_like(p) for n, p in self.trainable(model)},
-                "nu": {n: torch.zeros_like(p) for n, p in self.trainable(model)}}
+                "mu": zero_moments(self.trainable(model), off),
+                "nu": zero_moments(self.trainable(model), off)}
 
     @torch.no_grad()
     def global_norm(self, model: nn.Module) -> torch.Tensor:
@@ -157,36 +314,73 @@ class AdamW:
         cfg = self.cfg
         norm = self.global_norm(model)
         count = state["count"]
-        b1, b2, eps, wd = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, \
-            cfg.weight_decay
-        bc1 = 1 - b1 ** (count + 1)
-        bc2 = 1 - b2 ** (count + 1)
         max_norm = cfg.grad_clip_norm
         clip = norm >= max_norm
+        items, lrs = [], []
         for name, p in self.trainable(model):
             lr = self.schedules[self.labels[name]](count)
-            mu, nu = state["mu"][name], state["nu"][name]
             if p.grad is None:
                 # a trainable parameter the loss does not reach (the tower
                 # under freeze_vision): Adam sees g = 0 and weight decay
                 # still applies, as with optax's zero gradients
                 p.grad = torch.zeros_like(p)
             g = p.grad.contiguous()
-            for pc, mc, nc, gc in zip(_chunks(p), _chunks(mu), _chunks(nu),
-                                      _chunks(g)):
-                g32 = gc.float()
-                g32 = torch.where(clip, g32 / norm * max_norm, g32)
-                m32 = (1 - b1) * g32 + b1 * mc.float()
-                v32 = (1 - b2) * g32 * g32 + b2 * nc.float()
-                u = (m32 / bc1) / ((v32 / bc2).sqrt() + eps)
-                p32 = pc.float()
-                if wd:
-                    u = u + wd * p32
-                pc.copy_(p32 - lr * u)
-                mc.copy_(m32)
-                nc.copy_(v32)
+            for chunk in zip(_chunks(p), _chunks(g),
+                             _chunks(state["mu"][name]),
+                             _chunks(state["nu"][name])):
+                items.append(chunk)
+                lrs.append(lr)
+
+        def step(i, pc, gc, mc, nc):
+            g32 = gc.float()
+            g32 = torch.where(clip, g32 / norm * max_norm, g32)
+            adamw_chunk_(pc, g32, mc, nc, lrs[i], count, cfg.adam_b1,
+                         cfg.adam_b2, cfg.adam_eps, cfg.weight_decay)
+
+        if cfg.offload_optimizer:
+            if self._offload is None:
+                self._offload = _Offload(norm.device)
+            self._offload.run(items, step)
+        else:
+            for i, chunk in enumerate(items):
+                step(i, *chunk)
         state["count"] = count + 1
         return norm
+
+
+class PlainAdamW:
+    """optax's `adamw(schedule, b1, b2, eps=1e-8, eps_root=0,
+    weight_decay)` over every parameter of a module: no clip, no mask,
+    weight decay on every leaf, moments in the parameters' dtype, lr read
+    from `schedule` at the count before the increment (so a schedule that
+    starts at 0 leaves step 1 without effect). `update` applies one step
+    in place from the parameters' `.grad`."""
+
+    def __init__(self, schedule: Callable[[int], float], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+
+    @staticmethod
+    def init(module: nn.Module) -> dict:
+        params = list(module.named_parameters())
+        return {"count": 0,
+                "mu": {n: torch.zeros_like(p) for n, p in params},
+                "nu": {n: torch.zeros_like(p) for n, p in params}}
+
+    @torch.no_grad()
+    def update(self, module: nn.Module, state: dict) -> None:
+        count = state["count"]
+        lr = self.schedule(count)
+        for name, p in module.named_parameters():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            for pc, gc, mc, nc in zip(_chunks(p), _chunks(g.contiguous()),
+                                      _chunks(state["mu"][name]),
+                                      _chunks(state["nu"][name])):
+                adamw_chunk_(pc, gc, mc, nc, lr, count, self.b1, self.b2,
+                             self.eps, self.wd)
+        state["count"] = count + 1
 
 
 def make_optimizer(cfg: TrainConfig, model: nn.Module) -> AdamW:

@@ -20,9 +20,10 @@ of it. As in the JAX package, `train()` adds no factors itself
 (`models/lora.add_lora` is the caller's), so a model without them trains
 no LLM weight under `lora_enable`.
 
-Not ported yet, and refused with NotImplementedError: the optimizer
-offload, sequence parallelism and ring attention, multi-host and any mesh
-of more than one device (multi-GPU slice), W&B logging.
+`cfg.train.offload_optimizer` keeps the AdamW moments in pinned host
+memory (`train/optimizer.py`). Not ported yet, and refused with
+NotImplementedError: sequence parallelism and ring attention, multi-host
+and any mesh of more than one device (multi-GPU slice), W&B logging.
 """
 
 from __future__ import annotations
@@ -72,8 +73,6 @@ def _not_ported(what: str, slice_: str) -> NotImplementedError:
 
 def _check_supported(cfg: MetaMorphConfig, args: TrainerArgs,
                      multihost: bool, n_devices: int) -> None:
-    if cfg.train.offload_optimizer:
-        raise _not_ported("offload_optimizer", "multi-GPU")
     if cfg.train.sequence_parallel or args.attn_impl == "ring":
         raise _not_ported("sequence parallelism / ring attention",
                           "multi-GPU")

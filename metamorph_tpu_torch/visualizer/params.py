@@ -3,9 +3,10 @@
 The JAX visualizer keeps its weights in nested dicts and lists
 (`down/0/resnets/1/conv1/kernel`); its functions read them by key. The
 port keeps the same tree as a module: a dict node is a `ParamTree`, a list
-node an `nn.ModuleList`, a leaf a parameter (frozen: the render path is
-inference), so `.to(device, dtype)` moves the whole tree and the port's
-functions read it as JAX's read theirs (`p["kernel"]`, `"shortcut" in p`,
+node an `nn.ModuleList`, a leaf a parameter (made frozen, as the render
+path needs no gradient; the train step in `visualizer/train.py` sets
+`requires_grad` on the trees it trains), so `.to(device, dtype)` moves
+the whole tree and the port's functions read it as JAX's read theirs (`p["kernel"]`, `"shortcut" in p`,
 `p.get("attns")`). A key JAX holds as None (a UNet level without
 attention carries `attns: None`) stays None; a tree read back from files,
 where JAX's `flatten_tree` drops it, lacks the key, which reads the same.

@@ -125,11 +125,21 @@ def init_vae_params(cfg: VAEConfig, seed: int = 0, device="cuda",
     return ParamTree({"encoder": enc, "decoder": dec})
 
 
+def latent_shape(cfg: VAEConfig, images_shape) -> Tuple[int, ...]:
+    """The latents' shape [B, H/2^(L-1), W/2^(L-1), latent_channels] for
+    images of `images_shape` [B, H, W, 3]."""
+    B, H, W, _ = images_shape
+    f = 2 ** (len(cfg.block_out_channels) - 1)
+    return (B, H // f, W // f, cfg.latent_channels)
+
+
 def vae_encode(params: ParamTree, cfg: VAEConfig, images: torch.Tensor,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """images [B,H,W,3] in [-1,1] -> latents [B,H/2^(L-1),W/..,4] scaled by
-    scaling_factor: a sample of the posterior drawn from `generator` when
-    one is given, else its mean."""
+    scaling_factor: a sample of the posterior, mean + std * eps, with eps
+    given (of `latent_shape`) or drawn from `generator`; the mean when
+    neither is given."""
     g = cfg.norm_groups
     p = params["encoder"]
     x = conv2d(p["conv_in"], images.permute(0, 3, 1, 2))
@@ -145,11 +155,13 @@ def vae_encode(params: ParamTree, cfg: VAEConfig, images: torch.Tensor,
     moments = conv2d(p["conv_out"], x)
     moments = conv2d(p["quant_conv"], moments, padding=0)
     mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
-    if generator is not None:
+    if generator is not None and eps is None:
+        eps = torch.randn(mean.shape, generator=generator,
+                          device=generator.device, dtype=mean.dtype)
+    if eps is not None:
         logvar = logvar.clamp(-30.0, 20.0)
-        noise = torch.randn(mean.shape, generator=generator,
-                            device=generator.device, dtype=mean.dtype)
-        mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.device)
+        mean = mean + torch.exp(0.5 * logvar) * eps.to(mean.device,
+                                                       mean.dtype)
     return mean * cfg.scaling_factor
 
 

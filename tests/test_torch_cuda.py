@@ -2,8 +2,9 @@
 PyTorch version (fp32 math and fp32 output from the same bf16 inputs), the
 launch counters,
 and the wrappers' input checks; the visualizer's render on the card
-against the CPU, and its loader's device rule. Skips where there is no
-CUDA device.
+against the CPU, and its loader's device rule; the offloaded AdamW
+(pinned moments, bitwise the on-card update, a failed pin raising).
+Skips where there is no CUDA device.
 
 On a machine with an NVIDIA GPU (and no JAX, which tests/conftest.py
 imports):  python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -1109,3 +1110,120 @@ def test_visualizer_entry_points_default_to_the_card(dev, tmp_path):
         want = dict(a.named_parameters())
         for n, p in b.named_parameters():
             assert p.device.type == "cpu" and torch.equal(p, want[n].cpu())
+
+
+# ---- offload_optimizer -----------------------------------------------------------
+
+def _offload_run(dev, offload, steps=2):
+    """chip_smoke.py's small train config (head dim 128, so kernels A, C
+    and D run) in bf16 on the card, `steps` train steps on one packed
+    1024-token row; the moments offloaded or not. Returns (model, state,
+    losses, peak bytes above the weights)."""
+    import dataclasses
+
+    import numpy as np
+
+    from chip_smoke import small_train_cfg
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.train import train_step as TS
+    from metamorph_tpu_torch.train.optimizer import make_optimizer
+    from metamorph_tpu_torch.train.profile_train import packed_row
+
+    cfg = small_train_cfg()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, learning_rate=1e-3, offload_optimizer=offload))
+    model = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = TS.init_train_state(model, cfg)
+    tx = make_optimizer(cfg.train, model)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v
+             in batch_to_arrays(packed_row(1024, 4, 2, seed=3)).items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pixels = torch.randn((2, 28, 28, 3), generator=gen, device=dev)
+    losses = []
+    for _ in range(steps):
+        state, m = TS.train_step(state, batch, pixels, cfg, tx)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    return model, state, losses, torch.cuda.max_memory_allocated() - base
+
+
+def test_offloaded_step_on_card_is_bitwise_and_pinned(dev, monkeypatch):
+    """Two bf16 steps with the moments in pinned host memory against the
+    moments on the card: losses, parameters and moments bitwise; the peak
+    above the weights lower by about the moments (CHUNK cut to 2**16
+    elements, so the staging slots stay small)."""
+    from metamorph_tpu_torch.train import optimizer as opt_lib
+
+    monkeypatch.setattr(opt_lib, "CHUNK", 1 << 16)
+    ref_model, ref, ref_losses, ref_peak = _offload_run(dev, False)
+    model, state, losses, peak = _offload_run(dev, True)
+    assert losses == ref_losses
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              ref_model.named_parameters()):
+        assert torch.equal(p, q), n
+    moments = [t for k in ("mu", "nu") for t in state["opt_state"][k].values()]
+    assert moments and all(t.is_pinned() and t.device.type == "cpu"
+                           for t in moments)
+    for k in ("mu", "nu"):
+        for n, t in state["opt_state"][k].items():
+            assert torch.equal(t.to(dev), ref["opt_state"][k][n]), (k, n)
+    moment_bytes = sum(t.numel() * t.element_size() for t in moments)
+    assert peak <= ref_peak - 0.9 * moment_bytes, (peak, ref_peak,
+                                                   moment_bytes)
+
+
+def test_a_failed_pin_raises(dev):
+    """No fallback to pageable memory: a pin the host cannot give (16 TiB)
+    raises, naming the offload."""
+    from metamorph_tpu_torch.train.optimizer import pinned_zeros
+
+    with pytest.raises(RuntimeError, match="offload_optimizer: could not pin"):
+        pinned_zeros(1 << 44, torch.uint8)
+
+
+def test_offload_loads_wait_for_kernels_queued_on_the_main_stream(
+        dev, monkeypatch):
+    """The staging slots come from the main stream's pool, which hands out
+    memory that kernels still queued there will write. The main stream is
+    held busy (`torch.cuda._sleep`), then queued to fill freed blocks of
+    the slots' size with NaN; the offloaded update must load its moments
+    only after those fills, and stay bitwise the on-card update."""
+    from torch import nn
+
+    from metamorph_tpu_torch.config import TrainConfig
+    from metamorph_tpu_torch.train import optimizer as opt_lib
+
+    chunk = 1 << 20
+    monkeypatch.setattr(opt_lib, "CHUNK", chunk)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p0 = torch.randn(3 * chunk, generator=gen, device=dev).bfloat16()
+    g0 = torch.randn(3 * chunk, generator=gen, device=dev).bfloat16()
+    out = {}
+    for offload in (False, True):
+        model = nn.Module()
+        model.w = nn.Parameter(p0.clone())
+        model.w.grad = g0.clone()
+        tx = opt_lib.AdamW(TrainConfig(offload_optimizer=offload,
+                                       grad_clip_norm=1e9), model)
+        state = tx.init(model)
+        state["count"] = 100            # past the warmup: lr > 0
+        torch.cuda.synchronize()
+        if offload:
+            torch.cuda._sleep(1 << 30)  # ~0.5 s of the main stream
+            bait = [torch.empty(chunk, dtype=torch.bfloat16, device=dev)
+                    for _ in range(8)]
+            for t in bait:
+                t.fill_(float("nan"))
+            del bait
+        tx.update(model, state)
+        torch.cuda.synchronize()
+        out[offload] = (model.w.detach().clone(),
+                        [state[k]["w"].to(dev) for k in ("mu", "nu")])
+    assert torch.isfinite(out[True][0].float()).all()
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
