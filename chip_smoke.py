@@ -215,8 +215,33 @@ Phases (any failure raises and the script exits nonzero):
                the adapter trained, the UNet and VAE bitwise their seeds'
                init; the SigLIP encode's ms per image. In a temporary
                directory, deleted whatever happens (~5.5 GB written).
+  14. multi-GPU training on the one card, in a one-rank NCCL process group
+               (rendezvous: a FileStore in a temporary directory; the group
+               is destroyed at the end of the phase):
+     14a. `make_sharded_train_step` over the mesh (data 1, fsdp -1,
+               tensor 1), 5b's config, seed and batch: FSDP2 wrapping, the
+               global normalizers, the sharded norm and update; two steps
+               held to 5b's first two (bitwise, or losses within 1e-3 and
+               each tensor's update within 2e-2 of its max |update|; the
+               log says which); step s, peak memory, NCCL's kernels and
+               the busy share from the profiler, kernels A/C/D launched;
+     14b. ring attention at configs/longctx_sp.json's layout (T 16,384
+               in 8 chunks of 2,048, H 32, KV 8, Dh 128, bf16): each ring
+               position in turn through `_ring_body`, forward and backward,
+               against kernels A/C/D over the whole T in one call (each row
+               within 2e-2 of its own max |ref|); A, C and D launched once
+               per unskipped chunk (8 causal, 28 non-causal), never for a
+               skipped one; ms per position, their sum against the one
+               call; the full chunk's kernels alone (non-causal T = S =
+               2,048, with lse and an lse cotangent) with bounds, plain and
+               SDPA times;
+     14c. the visualizer's data-parallel step over the one-rank mesh at
+               13b's width, batch 2, 2 steps: bitwise the one-card step;
+     14d. `train()` under the process group (the sharded path), 2 layers
+               of the 8B width, T 1024: 2 steps unbroken against 1 step, a
+               save (~10 GB, in a temporary directory) and a resume.
 The phases run in the order 1-3c, 10b, 11a, 4, 5, 5d, 10, 11b-11d, 12, 9a,
-5b, 9b-9e, 5e, 13, 5c, 8 (with 11d's `evaluate`).
+5b, 9b-9e, 5e, 13, 5c, 8 (with 11d's `evaluate`), 14.
 
 The last two lines of stdout are the kernel summary JSON and
 {"ok": true, "device": {...}}; the whole script's wall time is printed
@@ -1823,6 +1848,11 @@ def phase_train_main(torch, dev):
                "vision_head.layers.1.kernel":
                    model.vision_head.layers[1].kernel}
     before = {n: p.detach().clone() for n, p in sampled.items()}
+    # 14a holds the sharded step to this one after its second step: every
+    # tensor's checksum, and the first UPDATE_SAMPLE elements of each
+    init_sample = {n: p.detach().reshape(-1)[:UPDATE_SAMPLE].float().cpu()
+                   for n, p in model.named_parameters()}
+    step2 = {}
 
     kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
     for kern in kernels:
@@ -1843,6 +1873,11 @@ def phase_train_main(torch, dev):
             if changed:
                 raise AssertionError(f"step 1 runs at lr 0 but changed "
                                      f"{changed}")
+        if i == 1:
+            step2 = {n: (tensor_checksum(torch, p),
+                         p.detach().reshape(-1)[:UPDATE_SAMPLE].float().cpu()
+                         - init_sample[n])
+                     for n, p in model.named_parameters()}
     launches = {k.symbol: k.launches for k in kernels}
     del before, sampled
 
@@ -1878,6 +1913,8 @@ def phase_train_main(torch, dev):
                model_flop_share=(6 * n_dense * T + attn_flops) / step_s
                / (PEAK_BF16_TFLOPS * 1e12))
     log("train main path", json.dumps(row))
+    # for 14a, kept out of the logged row
+    row["step2"] = step2
     del state, model, batch, pixels
     return row
 
@@ -4416,10 +4453,503 @@ def phase_offload(torch, dev, train_row) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-GPU training, on one card
+# ---------------------------------------------------------------------------
+
+UPDATE_SAMPLE = 1 << 16   # 14a: elements of each tensor's update compared
+SHARDED_LOSS_RTOL = 1e-3  # 14a, when not bitwise: the losses
+SHARDED_UPDATE_TOL = 2e-2  # 14a, when not bitwise: each sampled update,
+                           # of its max |update|
+RING_N, RING_CHUNK = 8, 2048   # 14b: configs/longctx_sp.json's ring (fsdp 8,
+                               # T = 16,384: 2,048 positions a rank)
+RING_HEADS = (32, 8, 128)      # 14b: H, KV, Dh of its LLaMA-3.1-8B
+VIS_DP_LOSS_RTOL = 1e-5   # 14c, when not bitwise: the losses (13a's)
+VIS_DP_ADAPTER_TOL = 4e-4  # 14c, when not bitwise: the adapter, absolute:
+                           # 2 * lr * steps of Adam, lr 1e-4, 2 steps (13a's
+                           # rule)
+RING_TOL = 2e-2   # 14b: each row of o, dq, dk, dv against its own max |ref|
+                  # (3c's rule): the ring's bf16 chunk outputs and gradients,
+                  # summed over up to 8 chunks, against one kernel call
+
+
+def one_rank_group(torch, dev, d: str) -> None:
+    """A one-rank NCCL process group on `dev`, its rendezvous a FileStore
+    in `d` (no port)."""
+    from metamorph_tpu_torch.parallel import mesh as mesh_lib
+
+    store = torch.distributed.FileStore(os.path.join(d, "store"), 1)
+    mesh_lib.init_distributed(dev.type, store=store, rank=0, world_size=1,
+                              device=dev)
+    if dev.type == "cuda" and torch.distributed.get_backend() != "nccl":
+        raise AssertionError("phase 14: the process group is not NCCL")
+
+
+def nccl_kernels(table) -> dict:
+    """NCCL's kernels in a profiler table: launches, device ms, names."""
+    rows = [r for r in table if "nccl" in r["name"].lower()]
+    return {"count": sum(r["calls"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "names": sorted({r["name"][:80] for r in rows})}
+
+
+def reset_parallel_context() -> None:
+    from metamorph_tpu_torch.parallel import context
+
+    context.set_current_mesh(None)
+    context.set_sequence_axis(None)
+
+
+def phase_sharded_train(torch, dev, train_row) -> dict:
+    """14a: `make_sharded_train_step` over the one-rank NCCL mesh (data 1,
+    fsdp -1, tensor 1) of the stage-2 step at 8B + SO400M width, with 5b's
+    config, seed and batch: FSDP2's wrapping and collectives, the global
+    normalizers and metrics, the sharded norm and update. Its two steps
+    are held to 5b's first two: bitwise (the losses, grad norms and every
+    parameter's checksum), else the losses within SHARDED_LOSS_RTOL and
+    each tensor's update within SHARDED_UPDATE_TOL; the log says which."""
+    import dataclasses
+
+    from metamorph_tpu_torch.config import MeshConfig
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.ops import flash_attention as fa
+    from metamorph_tpu_torch.parallel import mesh as mesh_lib
+    from metamorph_tpu_torch.train.optimizer import local
+    from metamorph_tpu_torch.train.profile_train import (packed_row,
+                                                         stage2_one_card)
+    from metamorph_tpu_torch.train.train_step import make_sharded_train_step
+
+    cfg, _ = stage2_one_card(4096)
+    cfg = dataclasses.replace(cfg, mesh=MeshConfig(data=1, fsdp=-1,
+                                                   tensor=1))
+    T, K, N = cfg.train.max_seq_len, cfg.mm.num_image_tokens, \
+        cfg.train.max_images_per_batch
+    mesh = mesh_lib.build_mesh(cfg.mesh, dev.type)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    step, tx, state = make_sharded_train_step(cfg, mesh, model)
+    params = dict(state["params"].named_parameters())
+    init_sample = {n: local(p).detach().reshape(-1)[:UPDATE_SAMPLE]
+                   .float().cpu() for n, p in params.items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             batch_to_arrays(packed_row(T, K, N, seed=21)).items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    s = cfg.siglip.image_size
+    pixels = torch.randn((N, s, s, 3), generator=gen, device=dev)
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    for kern in kernels:
+        kern.launches = 0
+    steps, times = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch, pixels)
+        steps.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {k.symbol: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / GIB
+
+    ref = train_row["step2"]
+    ref_steps = [dict(loss=train_row["losses"][i],
+                      grad_norm=train_row["grad_norms"][i]) for i in (0, 1)]
+    sums = {n: tensor_checksum(torch, local(p)) for n, p in params.items()}
+    bitwise = (set(sums) == set(ref)
+               and all(steps[i][k] == ref_steps[i][k] for i in (0, 1)
+                       for k in ("loss", "grad_norm"))
+               and all(sums[n] == ref[n][0] for n in sums))
+    worst = None
+    if bitwise:
+        held = "bitwise: losses, grad norms, every parameter's checksum"
+    else:
+        held = (f"losses within {SHARDED_LOSS_RTOL} relative, each tensor's "
+                f"update (its first {UPDATE_SAMPLE} elements) within "
+                f"{SHARDED_UPDATE_TOL} of its max |update|")
+        worst = 0.0
+        for n, p in params.items():
+            got = (local(p).detach().reshape(-1)[:UPDATE_SAMPLE].float().cpu()
+                   - init_sample[n])
+            want = ref[n][1]
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            worst = max(worst, err / scale if scale > 0 else err)
+        losses_ok = all(
+            abs(steps[i]["loss"] - ref_steps[i]["loss"])
+            <= SHARDED_LOSS_RTOL * abs(ref_steps[i]["loss"]) for i in (0, 1))
+        if not (losses_ok and worst <= SHARDED_UPDATE_TOL):
+            raise AssertionError(
+                f"sharded train 14a: steps {steps} against 5b's "
+                f"{ref_steps}, worst update error {worst}")
+    # a third step under the profiler, after the comparison: NCCL's
+    # kernels and the busy share
+    out = []
+    table, kernel_ms, busy_ms, wall_ms = profiled_spans(
+        torch, lambda: out.append(step(state, batch, pixels)))
+    row = dict(mesh=mesh_lib.axis_sizes(mesh),
+               backend=torch.distributed.get_backend(), held=held,
+               bitwise=bitwise, worst_update_err=worst, step_s=times,
+               one_card_step_s=train_row["step_s"][:2],
+               peak_mem_gib=peak,
+               one_card_peak_mem_gib=train_row["peak_mem_gib"],
+               steps=steps, one_card_steps=ref_steps, launches=launches,
+               nccl=nccl_kernels(table),
+               profiled_step_3=dict(wall_ms=wall_ms, kernel_ms=kernel_ms,
+                                    busy_ms=busy_ms, busy=busy_ms / wall_ms))
+    log("sharded train 14a", json.dumps(row))
+    for kern in kernels:
+        if kern.launches <= 0:
+            raise AssertionError(f"14a: kernel {kern.symbol} not launched")
+    reset_parallel_context()
+    del state, model, step, tx, params, batch, pixels, out
+    free_memory(torch)
+    return row
+
+
+def row_rel_err(torch, got, ref) -> float:
+    """max over rows (the last dim) of max|got - ref| / max|ref| of the
+    row (3c's rule)."""
+    diff = (got.float() - ref.float()).abs().amax(-1)
+    return (diff / ref.float().abs().amax(-1).clamp_min(1e-3)).max().item()
+
+
+def phase_ring(torch, dev) -> dict:
+    """14b: ring attention at configs/longctx_sp.json's layout (B 1,
+    T 16,384 in 8 chunks of 2,048, H 32, KV 8, Dh 128, bf16): each of the
+    8 ring positions in turn through `_ring_body`, forward and backward
+    with a seeded cotangent, against kernels A/C/D causal over the whole
+    T in one call; then the full chunk's kernels alone (non-causal
+    T = S = 2,048 with lse, and with an lse cotangent), with bounds and
+    SDPA's times."""
+    import torch.nn.functional as F
+
+    from metamorph_tpu_torch.ops import flash_attention as fa
+    from metamorph_tpu_torch.parallel import ring_attention as R
+
+    (H, KV, Dh), n, C = RING_HEADS, RING_N, RING_CHUNK
+    B = 1
+    T = n * C
+    scale = Dh ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1414)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, do = (randn(B, H, T, Dh), randn(B, KV, T, Dh),
+                   randn(B, KV, T, Dh), randn(B, H, T, Dh))
+    # the reference: one causal call over the whole sequence
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def whole():
+        o, _ = fa.flash_attention_with_lse(qr, kr, vr, causal=True)
+        return (o.detach(), *torch.autograd.grad(o, (qr, kr, vr), do))
+
+    o_ref, dq_ref, dk_ref, dv_ref = whole()
+    whole_ms = cuda_ms(whole, calls=3, reps=3)
+
+    # the ring: every position in turn, each chunk's gradients summed in
+    # fp32 across positions as its owner sums them
+    ks = [k[:, :, j * C:(j + 1) * C].float().requires_grad_()
+          for j in range(n)]
+    vs = [v[:, :, j * C:(j + 1) * C].float().requires_grad_()
+          for j in range(n)]
+    forms = []
+    real = (fa._launch, fa._launch_dq, fa._launch_dkv)
+
+    def recorded(i, fn):
+        def wrapped(*a):
+            forms.append((i, bool(a[-2])))   # (kernel, causal)
+            return fn(*a)
+        return wrapped
+
+    fa._launch, fa._launch_dq, fa._launch_dkv = (
+        recorded(i, f) for i, f in enumerate(real))
+    # the ring times and checks on the card; the chunk timings below take
+    # the kernels unwrapped
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    for kern in kernels:
+        kern.launches = 0
+    outs, dqs, pos_ms = [], [], []
+    try:
+        for idx in range(n):
+            sl = slice(idx * C, (idx + 1) * C)
+            qi = q[:, :, sl].clone().requires_grad_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            o, _ = R._ring_body(qi, idx, n, R.chunks_source(
+                ks, vs, idx, torch.bfloat16))
+            o = o.to(torch.bfloat16)
+            o.backward(do[:, :, sl])
+            b.record()
+            b.synchronize()
+            pos_ms.append(a.elapsed_time(b))
+            outs.append(o.detach())
+            dqs.append(qi.grad)
+    finally:
+        fa._launch, fa._launch_dq, fa._launch_dkv = real
+    launches = {kern.symbol: kern.launches for kern in kernels}
+
+    # the last position (1 diagonal + 7 full chunks) again, profiled: where
+    # its time goes (fresh chunks, so the checked gradients stay)
+    def last_position():
+        kf = [x.detach().clone().requires_grad_() for x in ks]
+        vf = [x.detach().clone().requires_grad_() for x in vs]
+        qi = q[:, :, (n - 1) * C:].clone().requires_grad_()
+        o, _ = R._ring_body(qi, n - 1, n, R.chunks_source(
+            kf, vf, n - 1, torch.bfloat16))
+        o.to(torch.bfloat16).backward(do[:, :, (n - 1) * C:])
+
+    table, kernel_ms, busy_ms, wall_ms = profiled_spans(torch, last_position)
+    flash_ms = sum(r["ms"] for r in table if "flash" in r["name"])
+    last = dict(wall_ms=wall_ms, kernel_ms=kernel_ms, busy_ms=busy_ms,
+                flash_kernel_ms=flash_ms, launches=sum(r["calls"]
+                                                       for r in table),
+                top=[dict(name=r["name"][:60], calls=r["calls"], ms=r["ms"])
+                     for r in table[:6]])
+    err = dict(o=row_rel_err(torch, torch.cat(outs, 2), o_ref),
+               dq=row_rel_err(torch, torch.cat(dqs, 2), dq_ref),
+               dk=row_rel_err(torch, torch.cat([x.grad for x in ks], 2),
+                              dk_ref),
+               dv=row_rel_err(torch, torch.cat([x.grad for x in vs], 2),
+                              dv_ref))
+    expected = n + n * (n - 1) // 2         # diagonals + full chunks
+    by_form = {name: {"causal": sum(1 for i, c in forms if i == j and c),
+                      "non_causal": sum(1 for i, c in forms
+                                        if i == j and not c)}
+               for j, name in enumerate(("A", "C", "D"))}
+
+    # the full chunk's kernels alone: non-causal T = S = C with lse (A)
+    # and with an lse cotangent (C, D)
+    qc, kc, vc, doc = q[:, :, :C], k[:, :, :C], v[:, :, :C], do[:, :, :C]
+    lengths = torch.full((B,), C, dtype=torch.int32, device=dev)
+    oc, lsec = fa._fwd(qc, kc, vc, lengths, False, scale)
+    dlse = torch.randn((B, H, C), generator=gen, device=dev)
+    delta = (doc.float() * oc.float()).sum(-1)
+    dd = (delta - dlse).contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (qc, kc, vc))
+    pairs = C * C
+    io = 2 * (2 * B * C * H * Dh + 2 * B * C * KV * Dh)
+    b_a = bound(io + 4 * B * H * C, 4 * Dh * H * pairs)
+    b_dq = bound(io + 8 * B * H * C + 2 * B * C * H * Dh, 6 * Dh * H * pairs)
+    b_dkv = bound(io + 8 * B * H * C + 4 * B * C * KV * Dh,
+                  8 * Dh * H * pairs)
+    ms_a = cuda_ms(lambda: fa._fwd(qc, kc, vc, lengths, False, scale))
+    ms_dq = cuda_ms(lambda: fa._launch_dq(qc, kc, vc, doc, lsec, dd, dq,
+                                          lengths, False, scale))
+    ms_dkv = cuda_ms(lambda: fa._launch_dkv(qc, kc, vc, doc, lsec, dd, dk,
+                                            dv, lengths, False, scale))
+    plain_a = cuda_ms(lambda: fa.flash_attention_plain(qc, kc, vc, lengths,
+                                                       False), calls=3,
+                      reps=3)
+    plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        qc, kc, vc, oc, lsec, doc, dlse, lengths, False, scale), calls=3,
+        reps=3)
+    lib_a = library_fwd_ms(F, fa, qc, kc, vc, lengths, False)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (qc, kc, vc))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, enable_gqa=True)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lo, (ql, kl, vl), doc, retain_graph=True), calls=3, reps=3)
+    chunk = dict(
+        B=B, T=C, S=C, causal=False, lse=True, dlse=True,
+        A=dict(ms=ms_a, plain_ms=plain_a, library_ms=lib_a, **b_a,
+               **rates(b_a, ms_a)),
+        C=dict(ms=ms_dq, plain_ms=plain_bwd, library_ms=lib_bwd, **b_dq,
+               **rates(b_dq, ms_dq)),
+        D=dict(ms=ms_dkv, plain_ms=plain_bwd, library_ms=lib_bwd, **b_dkv,
+               **rates(b_dkv, ms_dkv)),
+        note="C and D's plain_ms is the plain backward (dq, dk, dv "
+             "together); library_ms of C and D is SDPA's backward "
+             "(dq, dk, dv together, no lse cotangent)")
+    row = dict(B=B, T=T, chunks=n, chunk=C, H=H, KV=KV, Dh=Dh,
+               rel_err=err, tol=RING_TOL, position_ms=pos_ms,
+               ring_ms_sum=sum(pos_ms), whole_call_ms=whole_ms,
+               last_position_profiled=last,
+               launches=launches, launches_expected=expected,
+               launches_by_form=by_form, full_chunk=chunk)
+    log("ring 14b", json.dumps(row))
+    if max(err.values()) > RING_TOL:
+        raise AssertionError(f"ring 14b disagrees with one call: {err}")
+    if any(c != expected for c in launches.values()) or any(
+            f != {"causal": n, "non_causal": expected - n}
+            for f in by_form.values()):
+        raise AssertionError(f"ring 14b: launches {launches}, by form "
+                             f"{by_form}; {expected} each expected "
+                             f"({n} causal), none for a skipped chunk")
+    del q, k, v, do, qr, kr, vr, o_ref, dq_ref, dk_ref, dv_ref, ks, vs
+    del outs, dqs, ql, kl, vl, lo
+    free_memory(torch)
+    return row
+
+
+def phase_vis_dp(torch, dev) -> dict:
+    """14c: the visualizer's data-parallel step (`mesh=` a one-rank NCCL
+    mesh) at 13b's width, batch 2, 2 adapter-only steps, against the
+    one-card step from the same state and draws, with cuDNN's
+    deterministic algorithms (its default backward algorithms may sum in
+    another order each run, so two runs differ in low bits): losses and
+    the adapter's checksums bitwise, else the losses within
+    VIS_DP_LOSS_RTOL and the adapter within VIS_DP_ADAPTER_TOL of its
+    update; the log says which."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from metamorph_tpu_torch.visualizer import train as vt
+
+    ucfg, vcfg, akw = vis_configs()
+    tc = vt.VisualizerTrainConfig(adapter_mode=akw["mode"])
+    mesh = DeviceMesh(dev.type, torch.arange(1), mesh_dim_names=("data",))
+    g = torch.Generator(device=dev).manual_seed(15)
+    emb = torch.randn(2, tc.num_tokens, 1152, generator=g, device=dev)
+    emb = emb / emb.norm(dim=-1, keepdim=True)
+    img = torch.rand(2, VIS_TRAIN_RES, VIS_TRAIN_RES, 3, generator=g,
+                     device=dev) * 2 - 1
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for name, m in (("one_card", None), ("dp", mesh)):
+        step, init = vt.make_visualizer_train_step(tc, ucfg, vcfg, mesh=m)
+        state = init(0, device=dev)
+        losses, times = [], []
+        for i in range(2):
+            gen = torch.Generator(device=dev).manual_seed(i)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, loss = step(state, emb, img, gen)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t)
+        runs[name] = dict(
+            losses=losses, step_s=times,
+            sums={n: tensor_checksum(torch, p)
+                  for n, p in state["adapter"].named_parameters()},
+            adapter={n: p.detach().cpu()
+                     for n, p in state["adapter"].named_parameters()})
+        del state
+        free_memory(torch)
+    torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["one_card"], runs["dp"]
+    equal = a["losses"] == b["losses"] and a["sums"] == b["sums"]
+    worst = max((b["adapter"][n] - t).abs().max().item()
+                for n, t in a["adapter"].items())
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                      a["losses"]))
+    held = ("bitwise: losses and the adapter's checksums" if equal else
+            f"losses within {VIS_DP_LOSS_RTOL}, adapter within "
+            f"{VIS_DP_ADAPTER_TOL}")
+    row = dict(batch=2, steps=2, held=held, equal_bitwise=equal,
+               max_loss_rel_err=loss_err, max_adapter_abs_err=worst,
+               **{k: {"losses": r["losses"], "step_s": r["step_s"]}
+                  for k, r in runs.items()})
+    log("visualizer dp 14c", json.dumps(row))
+    if not equal and not (loss_err <= VIS_DP_LOSS_RTOL
+                          and worst <= VIS_DP_ADAPTER_TOL):
+        raise AssertionError(f"visualizer dp 14c differs from one card: "
+                             f"{row}")
+    return row
+
+
+def phase_sharded_trainer(torch, dev) -> dict:
+    """14d: `train()` under the process group (the sharded path) at
+    2 layers of the 8B config's width, T = 1024: 2 steps unbroken, and
+    1 step, a save and a resume to 2; the same final weights and moments,
+    bit for bit."""
+    import dataclasses
+    import signal
+
+    import numpy as np
+
+    from metamorph_tpu_torch.train.profile_train import (packed_row,
+                                                         stage2_one_card)
+    from metamorph_tpu_torch.train.trainer import TrainerArgs, train
+
+    cfg, _ = stage2_one_card(1024)
+    cfg = dataclasses.replace(cfg, llama=dataclasses.replace(
+        cfg.llama, num_layers=2))
+    T, K, N = 1024, cfg.mm.num_image_tokens, cfg.train.max_images_per_batch
+    packed = packed_row(T, K, N, seed=41)
+    s = cfg.siglip.image_size
+
+    class Data:
+        def __init__(self):
+            self.state = {"step_in_epoch": 0}
+
+        def state_dict(self):
+            return dict(self.state)
+
+        def load_state_dict(self, st):
+            self.state = dict(st)
+
+        def __iter__(self):
+            while True:
+                rng = np.random.default_rng(self.state["step_in_epoch"])
+                self.state["step_in_epoch"] += 1
+                yield packed, rng.normal(size=(N, s, s, 3)).astype(
+                    np.float32)
+
+    def run(d, total, save_steps):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, total_steps=total))
+        t = time.perf_counter()
+        out = train(c, TrainerArgs(output_dir=d, save_steps=save_steps,
+                                   save_total_limit=1), Data(), device=dev)
+        sums = {n: tensor_checksum(torch, p.to_local())
+                for n, p in out["state"]["params"].named_parameters()}
+        mu = {n: tensor_checksum(torch, m)
+              for n, m in out["state"]["opt_state"]["mu"].items()}
+        reset_parallel_context()
+        del out["state"]
+        free_memory(torch)
+        return sums, mu, time.perf_counter() - t
+
+    with tempfile.TemporaryDirectory() as d:
+        whole = run(os.path.join(d, "whole"), 2, 0)
+        run(os.path.join(d, "resumed"), 1, 1)
+        listing = sorted(os.listdir(os.path.join(d, "resumed")))
+        ckpt_gib = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _, fs in os.walk(os.path.join(d, "resumed"))
+            for f in fs) / GIB
+        resumed = run(os.path.join(d, "resumed"), 2, 0)
+    for sig in (signal.SIGTERM, signal.SIGUSR1):
+        signal.signal(sig, signal.SIG_DFL)
+    equal = whole[0] == resumed[0] and whole[1] == resumed[1]
+    row = dict(layers=2, T=T, equal_bitwise=equal, listing=listing,
+               checkpoint_gib=ckpt_gib, whole_s=whole[2],
+               resumed_s=resumed[2])
+    log("sharded trainer 14d", json.dumps(row))
+    if not equal or listing != ["metrics.jsonl", "step_1"]:
+        raise AssertionError(f"sharded trainer 14d: {row}")
+    return row
+
+
+def phase_multi_gpu(torch, dev, train_row, smi: str) -> dict:
+    """Phase 14 on the one card: a one-rank NCCL group, then 14a-14d; the
+    group is destroyed at the end whatever happens."""
+    t = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        one_rank_group(torch, dev, d)
+        rows = {"14a": phase_sharded_train(torch, dev, train_row),
+                "14b": phase_ring(torch, dev),
+                "14c": phase_vis_dp(torch, dev),
+                "14d": phase_sharded_trainer(torch, dev)}
+    finally:
+        reset_parallel_context()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+    rows["smi"] = smi
+    rows["phase_s"] = time.perf_counter() - t
+    log(f"multi-GPU phase 14: {rows['phase_s']:.1f}s ({smi})")
+    return rows
+
+
 def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                    options_rows, decode_row, train_row, recipe_row,
                    weights_row, w8_rows, p11_launches, vis_launches,
-                   offload_launches) -> dict:
+                   offload_launches, multi_row) -> dict:
     """The summary line: one entry per kernel, its launches on the main
     paths (summed, and by path), its worst error, and its time, plain time,
     bound and library time at the main-path shape (kernels B and E also at
@@ -4439,11 +4969,15 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
     ol = {k: r["launches"] for k, r in options_rows.items()}
     dl = decode_row["launches"]
 
+    ring = multi_row["14b"]
+
     def by_path(symbol, serve=0, decode=0, options=0, p11=0, vis=0):
         paths = {"serve": serve, "serve_options": options,
                  "decode_frontends": decode, "int8_prefix_eval": p11,
                  "visualizer": vis,
                  "train_main": tl.get(symbol, 0),
+                 "sharded_train": multi_row["14a"]["launches"].get(symbol, 0),
+                 "ring": ring["launches"].get(symbol, 0),
                  "offload": offload_launches.get(symbol, 0),
                  "recipe_data_path": rl.get(symbol, 0),
                  "weights": wl.get(symbol, 0)}
@@ -4476,8 +5010,10 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                    p11_launches["flash_fwd"], vis_launches["flash_fwd"]),
          "max_abs_err": max(r["max_abs_err"] for r in kernel_rows["flash"]),
          **timing(fl),
-         "forms": {f"causal_T{r['T']}": timing(r)
-                   for r in kernel_rows["flash"][:2]}},
+         "forms": {**{f"causal_T{r['T']}": timing(r)
+                      for r in kernel_rows["flash"][:2]},
+                   "ring_full_chunk_T2048_noncausal_lse": timing(
+                       ring["full_chunk"]["A"])}},
         {"name": "decode_attn", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
          "replaces": "metamorph_tpu/ops/decode_attention.py:191",
@@ -4495,7 +5031,9 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                      "metamorph_tpu/ops/flash_attention.py:698",
          **by_path("mm_flash_bwd_dq_bf16"),
          "max_abs_err": max(r["max_abs_err"]["dq"] for r in bwd_rows),
-         **timing(bw, "ms_dq", bw["bound_dq"])},
+         **timing(bw, "ms_dq", bw["bound_dq"]),
+         "forms": {"ring_full_chunk_T2048_noncausal_dlse": timing(
+             ring["full_chunk"]["C"])}},
         {"name": "flash_bwd_dkv", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "metamorph_tpu/ops/flash_attention.py:529, "
@@ -4504,8 +5042,11 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
          "max_abs_err": max(max(r["max_abs_err"]["dk"],
                                 r["max_abs_err"]["dv"]) for r in bwd_rows),
          **timing(bw, "ms_dkv", bw["bound_dkv"]),
-         "forms": {f"causal_T{r['T']}": timing(r, "ms_dkv", r["bound_dkv"])
-                   for r in bwd_rows[:2]}},
+         "forms": {**{f"causal_T{r['T']}": timing(r, "ms_dkv",
+                                                  r["bound_dkv"])
+                      for r in bwd_rows[:2]},
+                   "ring_full_chunk_T2048_noncausal_dlse": timing(
+                       ring["full_chunk"]["D"])}},
         {"name": "decode_attn_int8", "route": "cuda",
          "source": "metamorph_tpu_torch/csrc/decode_attn.cu",
          "replaces": "metamorph_tpu/ops/decode_attention.py:191 "
@@ -4684,6 +5225,8 @@ def main() -> int:
     phase_trainer(torch, dev)
     recipe_row = phase_recipe_main(torch, dev, train_row)
     phase_recipe_small(torch, dev)
+    free_memory(torch)
+    multi_row = phase_multi_gpu(torch, dev, train_row, smi)
 
     p11 = {k: int8_row["launches"][k] + prefix_row["launches"][k]
            + tasks_bf16["launches"][k] for k in int8_row["launches"]}
@@ -4696,7 +5239,7 @@ def main() -> int:
                              main_row, options_rows, decode_row, train_row,
                              recipe_row, weights_row, w8_rows, p11,
                              vis_row["decode"]["launches"],
-                             offload_row["launches"])
+                             offload_row["launches"], multi_row)
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps(summary))

@@ -18,7 +18,10 @@ JSONL, with the templates, masking, anyres and the native packer, and the
 HF-export saves of `train/checkpoint.py`, and `consolidate.py`) and the
 visualizer's render path (`visualizer/`: schedulers, adapter, SD-1.5 UNet
 and VAE, `render`, diffusers-format import; its checkpoints through
-`inference/loader.py`, `--visualizer` in the demo), on six
+`inference/loader.py`, `--visualizer` in the demo) and its training, and
+multi-GPU training (`parallel/`: the (data, fsdp, tensor) mesh on
+torch.distributed, FSDP2, tensor parallelism, ring attention with
+sequence parallelism; `make_sharded_train_step`), on six
 hand-written CUDA C++ kernels under `csrc/`: the flash-attention forward
 and its dq and dk/dv backward (`ops/flash_attention.py`), decode attention
 over a bf16 or int8 cache, chunk attention (`ops/decode_attention.py`),
@@ -36,6 +39,7 @@ Entry points run on the card unless the caller passes `device="cpu"`.
     from metamorph_tpu_torch.inference.loader import load_visualization
     from metamorph_tpu_torch.visualizer.pipeline import render
     python -m metamorph_tpu_torch.train.main --config ... --data-path ...
+    torchrun --nproc_per_node 8 -m metamorph_tpu_torch.train.main --multihost ...
     python -m metamorph_tpu_torch.consolidate --src OUT --dst EXPORT
 """
 

@@ -126,7 +126,8 @@ class MultimodalConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh axes. fsdp ~ ZeRO-3, pure data ~ DDP, tensor = megatron-style
-    TP. The port runs on one device: `device_count` must resolve to 1."""
+    TP (`parallel/mesh.build_mesh` lays them over the ranks of a process
+    group; without one, `device_count` must resolve to 1)."""
 
     data: int = 1
     fsdp: int = -1   # -1: all remaining devices

@@ -37,12 +37,13 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from metamorph_tpu_torch.config import LlamaConfig
+from metamorph_tpu_torch.ops.attention import attention
 from metamorph_tpu_torch.ops.decode_attention import (chunk_attention,
                                                       chunk_attention_batched,
                                                       decode_attention)
-from metamorph_tpu_torch.ops.flash_attention import flash_attention
 from metamorph_tpu_torch.ops.quant import (QuantizedWeight, quantize_kv,
                                            quantized_matmul)
+from metamorph_tpu_torch.parallel.tensor import copy_in, reduce_out
 
 
 def _param(*shape, dtype, device) -> nn.Parameter:
@@ -51,6 +52,9 @@ def _param(*shape, dtype, device) -> nn.Parameter:
 
 # the decoder linears, each of which may carry LoRA factors
 DENSE_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# the row products of tensor parallelism (cut on D_in); the rest are cut
+# on D_out
+ROW_NAMES = ("wo", "w_down")
 
 
 class LlamaLayer(nn.Module):
@@ -76,6 +80,17 @@ class LlamaLayer(nn.Module):
         for name in DENSE_NAMES:
             self.register_parameter(f"{name}_lora_a", None)
             self.register_parameter(f"{name}_lora_b", None)
+        # the tensor-parallel group when the layer holds a cut of its
+        # weights (`parallel/sharding.apply_tensor_parallel`), else None
+        self.tp_group = None
+
+    def forward(self, cfg: LlamaConfig, x, cos, sin, attn_mask,
+                remat: bool = False, remat_policy: str = "dots_no_batch"):
+        """One decoder layer of the training forward (`_layer`) under the
+        caller's config (its LoRA settings among them). Called as a
+        module, so that FSDP2 gathers the layer's weights around it."""
+        return _layer(self, cfg, x, cos, sin, attn_mask, remat,
+                      remat_policy)
 
 
 class Llama(nn.Module):
@@ -155,17 +170,28 @@ def _dense(layer: LlamaLayer, name: str, x, cfg: LlamaConfig):
     a = getattr(layer, f"{name}_lora_a")
     if a is not None and cfg.lora_r > 0:
         scale = cfg.lora_alpha / cfg.lora_r
-        out = out + ((x @ a) @ getattr(layer, f"{name}_lora_b")) * scale
+        b = getattr(layer, f"{name}_lora_b")
+        group = layer.tp_group
+        # under tensor parallelism the factor that stays whole (b of a row
+        # product, a of a column one) gets a partial gradient on each rank
+        if name in ROW_NAMES:
+            b = copy_in(b, group)
+        else:
+            a = copy_in(a, group)
+        out = out + ((x @ a) @ b) * scale
     return out
 
 
 def _qkv(layer: LlamaLayer, cfg: LlamaConfig, h, cos, sin):
     B, T, _ = h.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = apply_rope(_dense(layer, "wq", h, cfg).reshape(B, T, H, Dh), cos, sin)
-    k = apply_rope(_dense(layer, "wk", h, cfg).reshape(B, T, KV, Dh), cos,
+    Dh = cfg.head_dim
+    # the layer's own heads: all of them, or its cut under tensor
+    # parallelism (H / t query heads, KV / t key heads)
+    q = apply_rope(_dense(layer, "wq", h, cfg).reshape(B, T, -1, Dh), cos,
                    sin)
-    v = _dense(layer, "wv", h, cfg).reshape(B, T, KV, Dh)
+    k = apply_rope(_dense(layer, "wk", h, cfg).reshape(B, T, -1, Dh), cos,
+                   sin)
+    v = _dense(layer, "wv", h, cfg).reshape(B, T, -1, Dh)
     return q, k, v
 
 
@@ -173,15 +199,21 @@ def _attn_block(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin, attn_mask):
     """Full-sequence self-attention for one layer (prefill). Returns
     (out, (k, v)); k/v [B,T,KV,Dh] feed the decode cache."""
     B, T, _ = x.shape
-    q, k, v = _qkv(layer, cfg, x, cos, sin)
-    out = flash_attention(q, k, v, attn_mask=attn_mask, causal=True)
-    return _dense(layer, "wo", out.reshape(B, T, -1), cfg), (k, v)
+    group = layer.tp_group
+    q, k, v = _qkv(layer, cfg, copy_in(x, group), cos, sin)
+    out = attention(q, k, v, attn_mask=attn_mask, impl="flash")
+    return reduce_out(_dense(layer, "wo", out.reshape(B, T, -1), cfg),
+                      group), (k, v)
 
 
 def _mlp_block(layer: LlamaLayer, x, cfg: LlamaConfig):
     # silu in the activation dtype, as HF LlamaMLP computes it
+    group = layer.tp_group
+    x = copy_in(x, group)
     gate = F.silu(_dense(layer, "w_gate", x, cfg))
-    return _dense(layer, "w_down", gate * _dense(layer, "w_up", x, cfg), cfg)
+    return reduce_out(
+        _dense(layer, "w_down", gate * _dense(layer, "w_up", x, cfg), cfg),
+        group)
 
 
 def _decoder_layer(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin, attn_mask):
@@ -202,13 +234,15 @@ def embed_tokens(model: Llama, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _pre_attn(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin):
-    return _qkv(layer, cfg, rms_norm(x, layer.input_norm, cfg.rms_norm_eps),
+    h = rms_norm(x, layer.input_norm, cfg.rms_norm_eps)
+    return _qkv(layer, cfg, copy_in(h, layer.tp_group),
                 cos, sin)
 
 
 def _post_attn(layer: LlamaLayer, cfg: LlamaConfig, x, attn):
     B, T, _ = x.shape
-    x = x + _dense(layer, "wo", attn.reshape(B, T, -1), cfg)
+    x = x + reduce_out(_dense(layer, "wo", attn.reshape(B, T, -1), cfg),
+                       layer.tp_group)
     h = rms_norm(x, layer.post_attn_norm, cfg.rms_norm_eps)
     return x + _mlp_block(layer, h, cfg)
 
@@ -220,7 +254,7 @@ def _layer_save_attn(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin,
     backward recomputes the norms, projections and MLP but never attention."""
     q, k, v = checkpoint(_pre_attn, layer, cfg, x, cos, sin,
                          use_reentrant=False)
-    attn = flash_attention(q, k, v, attn_mask=attn_mask, causal=True)
+    attn = attention(q, k, v, attn_mask=attn_mask, impl="flash")
     return checkpoint(_post_attn, layer, cfg, x, attn, use_reentrant=False)
 
 
@@ -254,8 +288,8 @@ def _layer(layer: LlamaLayer, cfg: LlamaConfig, x, cos, sin, attn_mask,
         ctx = functools.partial(create_selective_checkpoint_contexts,
                                 _SAVE_OPS[remat_policy])
         return checkpoint(lambda x: _decoder_layer(
-            layer, cfg, x, cos, sin, attn_mask)[0], x, use_reentrant=False,
-            context_fn=ctx)
+            layer, cfg, x, cos, sin, attn_mask)[0], x,
+            use_reentrant=False, context_fn=ctx)
     return _layer_save_attn(layer, cfg, x, cos, sin, attn_mask)
 
 
@@ -281,12 +315,15 @@ def llama_forward(model: Llama, cfg: LlamaConfig,
     means every key is valid, which is what training passes (as the JAX
     flash path does: padding sits after every valid query, so causality
     alone keeps it out). With `remat`, each layer is checkpointed under
-    `remat_policy` (see REMAT_POLICIES). `prefill` is the form that also
-    fills a KV cache."""
+    `remat_policy` (see REMAT_POLICIES). While a sequence axis is
+    registered (sequence parallelism) attention is the ring, and
+    `positions` hold this rank's global positions. Each layer runs
+    as a module call (`LlamaLayer.forward`), which FSDP2 hooks. `prefill`
+    is the form that also fills a KV cache."""
     cos, sin = rope_tables(cfg, positions)
     x = inputs_embeds
     for layer in model.layers:
-        x = _layer(layer, cfg, x, cos, sin, attn_mask, remat, remat_policy)
+        x = layer(cfg, x, cos, sin, attn_mask, remat, remat_policy)
     return rms_norm(x, model.final_norm, cfg.rms_norm_eps)
 
 

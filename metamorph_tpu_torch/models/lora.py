@@ -83,7 +83,7 @@ def split_lora_state(llama: Llama) -> Dict[str, Dict]:
     for sub, name in LORA_TARGETS:
         for part in ("a", "b"):
             key = f"{name}_lora_{part}"
-            factors = [getattr(layer, key) for layer in llama.layers]
+            factors = [getattr(layer, key, None) for layer in llama.layers]
             if any(f is None for f in factors):
                 continue
             out.setdefault(sub, {})[key] = torch.stack(

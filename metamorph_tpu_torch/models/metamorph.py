@@ -10,13 +10,28 @@ Loss semantics (those of the JAX `metamorph_forward`):
     or softmax/0.07], target = detached vision-tower features;
   * total = CE + vision_coef * AR; the AR term is 0 when the batch has no
     answer-image token (guarded mean).
+
+Both one-position shifts (the labels, and the AR pairing of position t's
+hidden with token t + 1's target) are taken on the targets: position t is
+scored against `labels[t + 1]` and, where token t + 1 is an answer-image
+token, against its vision feature. The same sums as JAX's
+`hidden[:, :-1]` / `labels[:, 1:]` and `h_prev` forms, with every term
+local to its position, so a rank that holds a slice of the sequence
+(sequence parallelism) needs no neighbour's hidden state.
+
+In a sharded step (`shard`, a `parallel/context.BatchShard`) each rank
+sums its own terms and divides them by the token counts of the GLOBAL
+batch, all-reduced over the shard's group (JAX's `n_valid` and `n_ar` of
+the global batch), so the ranks' losses add up to the global loss and
+their gradients sum to its gradient; the metrics are all-reduced too.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -26,6 +41,7 @@ from metamorph_tpu_torch.models import llama as llama_lib
 from metamorph_tpu_torch.models.llama import _param
 from metamorph_tpu_torch.models import projector as proj_lib
 from metamorph_tpu_torch.models import siglip as siglip_lib
+from metamorph_tpu_torch.parallel.context import BatchShard
 
 
 def _d_vis(cfg: MetaMorphConfig) -> int:
@@ -76,6 +92,12 @@ class MetaMorph(nn.Module):
         self.image_newline = (
             _param(cfg.llama.hidden_size, dtype=dtype, device=device)
             if "unpad" in cfg.mm.mm_patch_merge_type else None)
+
+    def forward(self, cfg: MetaMorphConfig, batch: Dict[str, torch.Tensor],
+                pixels: torch.Tensor, **kw):
+        """`metamorph_forward` as a module call (FSDP2 gathers the root's
+        weights around it)."""
+        return metamorph_forward(self, cfg, batch, pixels, **kw)
 
 
 def encode_images(model: MetaMorph, cfg: MetaMorphConfig,
@@ -150,11 +172,12 @@ def _ce_chunk(llama: llama_lib.Llama, cfg: MetaMorphConfig, h, labels):
 
 
 def _chunked_ce(model: MetaMorph, cfg: MetaMorphConfig, hidden: torch.Tensor,
-                labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """Mean CE over non-IGNORE labels, a loop over sequence chunks of
-    `chunk` rows, each checkpointed: the backward recomputes one
-    [B, chunk, V] fp32 logits block at a time, so the whole fp32 logits
-    tensor never exists."""
+                labels: torch.Tensor, chunk: int = 512
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed CE over the non-IGNORE labels, their count), a loop over
+    sequence chunks of `chunk` rows, each checkpointed: the backward
+    recomputes one [B, chunk, V] fp32 logits block at a time, so the whole
+    fp32 logits tensor never exists."""
     T = hidden.shape[1]
     chunk = min(chunk, T)
     total = hidden.new_zeros((), dtype=torch.float32)
@@ -164,29 +187,60 @@ def _chunked_ce(model: MetaMorph, cfg: MetaMorphConfig, hidden: torch.Tensor,
                           labels[:, s:s + chunk], use_reentrant=False)
         total = total + t
         count = count + c
-    return total / count.clamp_min(1)
+    return total, count
+
+
+def _next_targets(batch: Dict[str, torch.Tensor]):
+    """Position t's targets are token t + 1's: (labels, AR gather index,
+    AR mask) shifted left by one, the last position IGNORE / unmasked."""
+    labels = batch["labels"]
+    idx = batch["img_gather_idx"].long()
+    w = batch["image_ar_mask"].float()
+    return (torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                      IGNORE_INDEX)], 1),
+            torch.cat([idx[:, 1:], idx[:, -1:]], 1),
+            torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], 1))
+
+
+_SEQ_KEYS = ("tokens", "position_ids", "img_gather_idx", "is_image",
+             "attn_mask")
 
 
 def metamorph_forward(model: MetaMorph, cfg: MetaMorphConfig,
                       batch: Dict[str, torch.Tensor], pixels: torch.Tensor,
                       remat: bool = False,
-                      remat_policy: str = "dots_no_batch"
+                      remat_policy: str = "dots_no_batch",
+                      shard: Optional[BatchShard] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: fused multimodal sequence -> (total_loss, metrics).
     `batch` holds the packer's [B,T] tensors (`batch_to_arrays`) on the
-    model's device; pixels [N,H,W,3]."""
+    model's device; pixels [N,H,W,3]. With `shard` the batch and pixels are
+    this rank's (under sequence parallelism, the whole rows and images of
+    its data group, of which it runs slice `seq_index`), the returned loss
+    is this rank's part of the global loss and the metrics are global."""
     projected, targets = encode_images(model, cfg, pixels)
+    labels, ar_idx, w = _next_targets(batch)
+    if shard is not None and shard.seq_count > 1:
+        T = labels.shape[1]
+        if T % shard.seq_count:
+            raise ValueError(f"sequence length {T} does not split into "
+                             f"{shard.seq_count} equal slices")
+        n = T // shard.seq_count
+        sl = slice(shard.seq_index * n, (shard.seq_index + 1) * n)
+        batch = {k: (v[:, sl] if k in _SEQ_KEYS else v)
+                 for k, v in batch.items()}
+        labels, ar_idx, w = labels[:, sl], ar_idx[:, sl], w[:, sl]
     embeds = fuse_embeddings(model, cfg, batch, projected)
     # no key mask: right padding sits after every valid query, so causality
-    # alone keeps it out (the JAX flash path passes none either)
+    # alone keeps it out (the JAX flash path passes none either); the
+    # positions are global ones, so RoPE needs no offset under sequence
+    # parallelism
     hidden = llama_lib.llama_forward(
         model.llama, cfg.llama, embeds, batch["position_ids"], None,
         remat=remat, remat_policy=remat_policy)
 
-    labels = batch["labels"]
-    loss_language = _chunked_ce(model, cfg, hidden[:, :-1], labels[:, 1:],
-                                chunk=cfg.train.ce_chunk)
-    n_valid = (labels[:, 1:] != IGNORE_INDEX).sum().clamp_min(1)
+    ce_sum, n_text = _chunked_ce(model, cfg, hidden, labels,
+                                 chunk=cfg.train.ce_chunk)
 
     # image-AR loss on the [B,T] layout: targets gathered with the fusion's
     # plan, the vision head run on every position and weighted by the
@@ -201,13 +255,14 @@ def metamorph_forward(model: MetaMorph, cfg: MetaMorphConfig,
     else:
         tgt_flat = torch.cat([targets.reshape(N * K, Dv).float(),
                               targets.new_zeros((1, Dv), dtype=torch.float32)])
-    tgt = tgt_flat[batch["img_gather_idx"].long()]                # [B,T,Dv]
-    # teacher forcing: hidden at t-1 predicts image token t
-    h_prev = torch.cat([torch.zeros_like(hidden[:, :1]), hidden[:, :-1]],
-                       dim=1)
-    pred = apply_vision_head(model, cfg, h_prev)                  # fp32
-    w = batch["image_ar_mask"].float()
-    n_ar = w.sum().clamp_min(1.0)
+    tgt = tgt_flat[ar_idx]                                        # [B,T,Dv]
+    # teacher forcing: hidden at t predicts image token t + 1
+    pred = apply_vision_head(model, cfg, hidden)                  # fp32
+    counts = torch.stack([n_text.float(), w.sum()]).detach()
+    if shard is not None and shard.group is not None:
+        dist.all_reduce(counts, group=shard.group)
+    n_valid = counts[0].clamp_min(1.0)
+    n_ar = counts[1].clamp_min(1.0)
     if cfg.mm.apply_softmax:
         per_tok = -(tgt * torch.log(pred + 1e-10)).sum(-1)
     elif cfg.mm.normalize_vision:
@@ -216,15 +271,19 @@ def metamorph_forward(model: MetaMorph, cfg: MetaMorphConfig,
     else:
         per_tok = (tgt - pred).abs().mean(-1)
     loss_image_ar = (per_tok * w).sum() / n_ar
+    loss_language = ce_sum / n_valid
 
     total = loss_language
     if cfg.mm.use_vision_ar:
         total = total + cfg.mm.vision_coef * loss_image_ar
+    losses = torch.stack([total, loss_language, loss_image_ar]).detach()
+    if shard is not None and shard.group is not None:
+        dist.all_reduce(losses, group=shard.group)
     metrics = {
-        "loss": total.detach(),
-        "loss_language": loss_language.detach(),
-        "loss_image_ar": loss_image_ar.detach(),
-        "n_text_tokens": n_valid.float(),
-        "n_image_ar_tokens": w.sum(),
+        "loss": losses[0],
+        "loss_language": losses[1],
+        "loss_image_ar": losses[2],
+        "n_text_tokens": n_valid,
+        "n_image_ar_tokens": counts[1],
     }
     return total, metrics

@@ -35,6 +35,11 @@ class SiglipLayer(nn.Module):
         self.fc1, self.fc1_bias = _param(D, Fd, **kw), _param(Fd, **kw)
         self.fc2, self.fc2_bias = _param(Fd, D, **kw), _param(D, **kw)
 
+    def forward(self, cfg: SiglipConfig, x: torch.Tensor) -> torch.Tensor:
+        """One ViT block (`_vit_block`), called as a module so that FSDP2
+        gathers the layer's weights around it."""
+        return _vit_block(cfg, x, self)
+
 
 class Siglip(nn.Module):
     def __init__(self, cfg: SiglipConfig, dtype=torch.bfloat16, device=None):
@@ -112,7 +117,7 @@ def siglip_encode(model: Siglip, cfg: SiglipConfig, pixels: torch.Tensor
     if not 0 <= n_run <= cfg.num_layers:
         raise ValueError(f"select_layer {sel} out of range")
     for layer in list(model.layers)[:n_run]:
-        x = _vit_block(cfg, x, layer)
+        x = layer(cfg, x)
     # hidden_states[sel] is pre-final-LN: final_ln is NOT applied
     return x
 

@@ -22,7 +22,11 @@ The reference quirks stay as they are:
     images are excluded from AR targets;
   * right or left re-padding.
 
-The per-host shard helpers (`shift_packed_*`) come with multi-GPU.
+JAX's per-host shard helpers (`shift_packed_shard`,
+`shift_packed_anyres_shard`) are not ported, by design: they re-base a
+shard's gather indices to one global image table, which GSPMD needs and a
+torch rank, gathering from its own images, does not
+(`train/data.py`'s `DataIterator`).
 """
 
 from __future__ import annotations

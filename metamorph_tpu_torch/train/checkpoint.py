@@ -6,6 +6,13 @@ directory counts once its `meta.json` exists. The state (model weights,
 optimizer moments and count, step) goes through `torch.save` into
 `state.pt`.
 
+A sharded train state (`make_sharded_train_step`) saves in the same
+format: every rank takes part in gathering each full tensor (FSDP2's
+shards, then the tensor cut), one tensor at a time onto the host, and rank
+0 alone writes the files; on restore every rank reads the whole file and
+keeps its own shard of each tensor. So a sharded checkpoint restores on
+one device and a one-device checkpoint restores onto a mesh.
+
 The other saves are safetensors files in the JAX package's key layouts, so
 each package reads the other's:
   * the stage-1 adapter (`save_adapter`/`load_adapter`): the projector
@@ -27,7 +34,8 @@ import re
 import shutil
 import signal
 import threading
-from typing import Dict, Optional
+from types import SimpleNamespace
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -37,24 +45,139 @@ from metamorph_tpu_torch.utils.safetensors_io import (SafetensorsFile,
                                                       nbytes, save_file)
 
 
+def _sharded(state: dict) -> bool:
+    return "tensor_cut" in state
+
+
+def _full(p: torch.Tensor, t: torch.Tensor, cut: Dict[str, int],
+          name: str, group) -> torch.Tensor:
+    """The whole of tensor `t` (the local shard of parameter `p`, or a
+    moment made from it) on the host: FSDP2's shards gathered over the
+    (data, fsdp) mesh, then the tensor cut over the tensor group."""
+    from torch.distributed.tensor import DTensor
+
+    dev = p.to_local().device
+    full = DTensor.from_local(t.to(dev), p.device_mesh, p.placements,
+                              shape=p.shape, stride=p.stride()).full_tensor()
+    if name in cut:
+        parts = [torch.empty_like(full)
+                 for _ in range(torch.distributed.get_world_size(group))]
+        torch.distributed.all_gather(parts, full.contiguous(), group=group)
+        full = torch.cat(parts, dim=cut[name])
+    return full.cpu()
+
+
+def _shard_of(p: torch.Tensor, full: torch.Tensor, cut: Dict[str, int],
+              name: str, group) -> torch.Tensor:
+    """This rank's shard of `full` as parameter `p` holds it: the tensor
+    cut, then FSDP2's cut (no communication)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if name in cut:
+        full = full.chunk(torch.distributed.get_world_size(group),
+                          cut[name])[torch.distributed.get_rank(group)]
+    return distribute_tensor(full.to(p.to_local().device), p.device_mesh,
+                             p.placements, src_data_rank=None).to_local()
+
+
+@torch.no_grad()
+def full_train_state(state: dict) -> Optional[dict]:
+    """The one-device form of a sharded train state ({"params": state
+    dict, "opt_state", "step"}, host tensors) on rank 0, None on the other
+    ranks; every rank must call it."""
+    model, opt, cut = state["params"], state["opt_state"], state["tensor_cut"]
+    group = state["tensor_group"]
+    rank0 = torch.distributed.get_rank() == 0
+    params, mu, nu = {}, {}, {}
+    for name, p in model.named_parameters():
+        for out, t in ((params, p.to_local()), (mu, opt["mu"].get(name)),
+                       (nu, opt["nu"].get(name))):
+            if t is not None:
+                full = _full(p, t, cut, name, group)
+                if rank0:
+                    out[name] = full
+    if not rank0:
+        return None
+    return {"params": params,
+            "opt_state": {"count": opt["count"], "mu": mu, "nu": nu},
+            "step": state["step"]}
+
+
+def adapter_param(name: str) -> bool:
+    """A parameter `save_adapter` writes."""
+    return name.startswith("projector.") or name == "llama.embed"
+
+
+def lora_param(name: str) -> bool:
+    """A parameter `save_lora` writes."""
+    return "_lora_" in name
+
+
+@torch.no_grad()
+def full_model(state: dict, keep: Callable[[str], bool]):
+    """What `save_adapter` and `save_lora` read from a train state's model.
+    A one-device state's model as it is. A sharded state's parameters whose
+    names `keep` accepts, gathered whole onto the host (every rank must
+    call) as attributes of nested objects laid out as the model, a layer
+    index picking from a list: on rank 0, None on the other ranks."""
+    if not _sharded(state):
+        return state["params"]
+    cut, group = state["tensor_cut"], state["tensor_group"]
+    full = {n: _full(p, p.to_local(), cut, n, group)
+            for n, p in state["params"].named_parameters() if keep(n)}
+    if torch.distributed.get_rank() != 0:
+        return None
+    root: dict = {}
+    for name, t in full.items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return [build(node[str(i)]) for i in range(len(node))]
+        return SimpleNamespace(**{k: build(v) for k, v in node.items()})
+
+    return build(root)
+
+
 def save_train_state(ckpt_dir: str, step: int, state: dict,
                      config_json: Optional[str] = None,
                      data_state: Optional[Dict] = None) -> str:
-    """Write the train state under {ckpt_dir}/step_{step}."""
+    """Write the train state under {ckpt_dir}/step_{step}. A sharded state
+    is gathered (every rank calls this) and written by rank 0."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
+    if _sharded(state):
+        full = full_train_state(state)
+        if full is not None:
+            os.makedirs(path, exist_ok=True)
+            torch.save(full, os.path.join(path, "state.pt"))
+            _write_meta(path, step, config_json, data_state)
+        torch.distributed.barrier()
+        return path
     os.makedirs(path, exist_ok=True)
     torch.save({"params": state["params"].state_dict(),
                 "opt_state": state["opt_state"], "step": state["step"]},
                os.path.join(path, "state.pt"))
+    _write_meta(path, step, config_json, data_state)
+    return path
+
+
+def _write_meta(path: str, step: int, config_json: Optional[str],
+                data_state: Optional[Dict]) -> None:
+    # config first: a step directory counts once its meta.json exists
+    if config_json is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            f.write(config_json)
     meta = {"step": step}
     if data_state is not None:
         meta["data_state"] = data_state
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
-    if config_json is not None:
-        with open(os.path.join(path, "config.json"), "w") as f:
-            f.write(config_json)
-    return path
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -78,8 +201,20 @@ def restore_train_state(path: str, template: dict) -> dict:
     model = template["params"]
     saved = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                        mmap=True, weights_only=True)
-    model.load_state_dict(saved["params"])
     opt = template["opt_state"]
+    if _sharded(template):
+        cut, group = template["tensor_cut"], template["tensor_group"]
+        for name, p in model.named_parameters():
+            p.to_local().copy_(_shard_of(p, saved["params"][name], cut,
+                                         name, group))
+            for key in ("mu", "nu"):
+                if name in opt[key]:
+                    opt[key][name].copy_(_shard_of(
+                        p, saved["opt_state"][key][name], cut, name, group))
+        opt["count"] = saved["opt_state"]["count"]
+        template["step"] = saved["step"]
+        return template
+    model.load_state_dict(saved["params"])
     for key in ("mu", "nu"):
         for name, t in opt[key].items():
             t.copy_(saved["opt_state"][key][name])
@@ -110,7 +245,8 @@ def prune_checkpoints(ckpt_dir: str, keep: int = 1):
 
 def save_adapter(path: str, model: nn.Module) -> None:
     """The projector and the token embeddings as a safetensors file in the
-    reference's key layout."""
+    reference's key layout (`model`: the model, or `full_model` of a
+    sharded train state)."""
     tensors = hf_import.mlp_params_to_hf(model.projector, "model.mm_projector")
     tensors["model.embed_tokens.weight"] = model.llama.embed.detach()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -233,7 +369,7 @@ def export_hf(out_dir: str, model: nn.Module, cfg,
 
 def save_lora(path: str, model: nn.Module) -> None:
     """Only the LoRA factors, as flat safetensors (`llama/layers/<sub>/
-    <w>_lora_a` [L, D_in, r], ...)."""
+    <w>_lora_a` [L, D_in, r], ...); `model` as `save_adapter` takes it."""
     from metamorph_tpu_torch.inference.loader import flatten_tree
     from metamorph_tpu_torch.models.lora import split_lora_state
 

@@ -26,8 +26,8 @@ re-targeted at the static-shape packer:
     (`multimodal/native.py` counts which packer ran).
 
 The iterator is deterministic (seeded per epoch) and resumable (skip count).
-It runs on one process: the per-host shards of a multi-process run come
-with the multi-GPU slice.
+With `process_count` > 1 each rank packs only its shard of every global
+batch (multi-GPU training).
 """
 
 from __future__ import annotations
@@ -508,9 +508,9 @@ class PackedCollator:
     original sizes; the collator builds the batch view_map / tokens_per_image
     plan (static capacities) and a padded view-pixel stack.
 
-    The JAX collator also packs one host's shard against a per-host slot
-    budget (`num_image_slots` per call); that comes with the multi-GPU
-    slice."""
+    `num_image_slots` may be overridden per call too: one rank's shard of
+    a global batch packs against its share of the slots (and, for anyres,
+    of the view and token capacities)."""
 
     num_image_tokens: int
     max_seq_len: int
@@ -523,19 +523,32 @@ class PackedCollator:
     view_capacity: int = 0    # 0 -> derived from pinpoints * slots
     token_capacity: int = 0   # 0 -> derived (view_capacity * (P^2 + P))
 
-    def _anyres_caps(self) -> Tuple[int, int, int]:
-        """(patches per side P, view capacity, token capacity)."""
+    def _anyres_caps(self, num_image_slots: Optional[int] = None
+                     ) -> Tuple[int, int, int]:
+        """(patches per side P, view capacity, token capacity); for a
+        shard's `num_image_slots`, the global capacities scaled by its
+        share of the slots, which must divide them."""
         S, p = self.image_size, self.patch_size
         P = S // p
         max_tiles = max((w // S) * (h // S) for w, h in self.grid_pinpoints)
         vc = self.view_capacity or self.num_image_slots * (1 + max_tiles)
         tc = self.token_capacity or vc * (P * P + P)
+        if num_image_slots is not None \
+                and num_image_slots != self.num_image_slots:
+            if (vc * num_image_slots) % self.num_image_slots \
+                    or (tc * num_image_slots) % self.num_image_slots:
+                raise ValueError(
+                    "anyres capacities must divide evenly across hosts")
+            vc = vc * num_image_slots // self.num_image_slots
+            tc = tc * num_image_slots // self.num_image_slots
         return P, vc, tc
 
-    def _collate_anyres(self, instances) -> Tuple[PackedBatch, np.ndarray]:
+    def _collate_anyres(self, instances,
+                        num_image_slots: Optional[int] = None
+                        ) -> Tuple[PackedBatch, np.ndarray]:
         from metamorph_tpu_torch.multimodal.anyres import build_batch_plan
 
-        P, vc, tc = self._anyres_caps()
+        P, vc, tc = self._anyres_caps(num_image_slots)
         S = self.image_size
         views, sizes, n_views = [], [], []
         for inst in instances:
@@ -549,7 +562,8 @@ class PackedCollator:
         packed = native.pack(
             [inst["input_ids"] for inst in instances],
             [inst["labels"] for inst in instances],
-            self.num_image_tokens, self.max_seq_len, self.num_image_slots,
+            self.num_image_tokens, self.max_seq_len,
+            num_image_slots or self.num_image_slots,
             tokens_per_image=tokens_per_image, gather_capacity=tc)
         packed = dataclasses.replace(packed, view_map=view_map)
         total_views = sum(n_views)
@@ -564,12 +578,13 @@ class PackedCollator:
         return packed, pixels
 
     def __call__(self, instances: Sequence[Dict[str, Any]],
-                 num_image_tokens: Optional[int] = None
+                 num_image_tokens: Optional[int] = None,
+                 num_image_slots: Optional[int] = None
                  ) -> Tuple[PackedBatch, np.ndarray]:
         if self.image_aspect_ratio == "anyres":
-            return self._collate_anyres(instances)
+            return self._collate_anyres(instances, num_image_slots)
         K = num_image_tokens or self.num_image_tokens
-        N = self.num_image_slots
+        N = num_image_slots or self.num_image_slots
         ids = [inst["input_ids"] for inst in instances]
         labels = [inst["labels"] for inst in instances]
         packed = native.pack(ids, labels, K, self.max_seq_len, N)
@@ -614,19 +629,21 @@ class DataIterator:
     `random.Random` seeded with the hash of an int tuple, as in the JAX
     package, so both packages visit the same samples in the same order.
 
-    One process loads whole batches. `process_count > 1` (each host packing
-    its shard of every global batch) is refused: the shard re-basing
-    (`shift_packed_shard`, `shift_packed_anyres_shard`) comes with the
-    multi-GPU slice."""
+    With `process_count` P > 1 each rank loads and packs only its shard of
+    every global batch: rows b*B + i*B/P .. against N/P image slots (and,
+    for anyres, its share of the view and token capacities), where i is
+    the rank's `process_index`, its data-parallel coordinate
+    (`parallel/mesh.dp_coordinate`); ranks that share a coordinate load the
+    same shard. Every rank walks the same order, so the shards are
+    disjoint and cover the batch. JAX re-bases each shard's gather
+    indices to one global image table (`shift_packed_shard`), since GSPMD
+    joins the shards into one global array; a rank of the port gathers
+    from its own images only, so its shard keeps local numbering."""
 
     def __init__(self, dataset: LazySupervisedDataset, collator: PackedCollator,
                  batch_size: int, seed: int = 42, group_by_modality: bool = False,
                  token_buckets: Sequence[int] = (), accum_steps: int = 1,
                  process_index: int = 0, process_count: int = 1):
-        if max(int(process_count), 1) > 1:
-            raise NotImplementedError(
-                "per-process data shards (process_count > 1) are not ported "
-                "to the PyTorch package yet (the multi-GPU slice)")
         self.dataset = dataset
         self.collator = collator
         self.batch_size = batch_size
@@ -636,6 +653,17 @@ class DataIterator:
         # all microbatches inside one optimizer step must share a token bucket
         # (the trainer stacks them; mixed K would change the packed shapes)
         self.accum_steps = max(int(accum_steps), 1)
+        self.process_index = process_index
+        self.process_count = max(int(process_count), 1)
+        if self.process_count > 1:
+            if batch_size % self.process_count:
+                raise ValueError("batch_size must divide by process_count")
+            if collator.num_image_slots % self.process_count:
+                raise ValueError("num_image_slots must divide by process_count")
+            if collator.image_aspect_ratio == "anyres":
+                # shard budgets must split evenly (raises early if not)
+                collator._anyres_caps(collator.num_image_slots
+                                      // self.process_count)
         self.epoch = 0
         self.step_in_epoch = 0
 
@@ -671,14 +699,19 @@ class DataIterator:
         self.seed = state.get("seed", self.seed)
 
     def __iter__(self):
+        P = self.process_count
+        B_local = self.batch_size // P
+        N_local = self.collator.num_image_slots // P
         while True:
             order = self._order()
             n_batches = len(order) // self.batch_size
             for b in range(self.step_in_epoch, n_batches):
                 self.step_in_epoch = b + 1
                 K = self._bucket_for(self.epoch, b)
-                rows = [self.dataset[order[b * self.batch_size + k]]
-                        for k in range(self.batch_size)]
-                yield self.collator(rows, num_image_tokens=K)
+                lo = b * self.batch_size + self.process_index * B_local
+                rows = [self.dataset[order[lo + k]] for k in range(B_local)]
+                yield self.collator(
+                    rows, num_image_tokens=K,
+                    num_image_slots=N_local if P > 1 else None)
             self.epoch += 1
             self.step_in_epoch = 0

@@ -8,10 +8,24 @@ the card out.
 
 The flags are the JAX CLI's, plus `--device` (default `cuda`; a run on the
 CPU asks for `cpu`). `--hf-*` and `--pretrain-mm-mlp-adapter` go to
-`train()`, which loads them; it refuses `--multihost` and `--attn-impl
-ring`, which the port does not have yet. The tokenizer loads through `transformers`, imported when
-`main` runs; `build` takes any `tokenize(str) -> list[int]` callable, so a
-caller without `transformers` drives the same data path through the API.
+`train()`, which loads them. The tokenizer loads through `transformers`,
+imported when `main` runs; `build` takes any `tokenize(str) -> list[int]`
+callable, so a caller without `transformers` drives the same data path
+through the API.
+
+On several cards, one process per card:
+
+    torchrun --nproc_per_node 8 -m metamorph_tpu_torch.train.main \
+        --multihost --config configs/stage2_finetune.json ...
+
+`--multihost` starts the process group from torchrun's environment, builds
+the config's mesh and loads this rank's shard of every batch (its
+data-parallel coordinate as process index and count, anyres included:
+JAX's CLI loads anyres batches whole on every host, because its shards
+would be re-based to one global table, while a rank of the port gathers
+from its own views). A config that sets `sequence_parallel` splits each
+row's positions over the fsdp axis, and attention is then the ring,
+whatever `--attn-impl` says.
 """
 
 from __future__ import annotations
@@ -41,8 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--group-by-modality-length", action="store_true")
     p.add_argument("--attn-impl", default="flash",
                    choices=["xla", "flash", "ring"],
-                   help="ring (sequence-parallel ring attention) is not "
-                        "ported: train() refuses it")
+                   help="JAX's flag, checked: the port runs flash "
+                        "attention, and ring attention under sequence "
+                        "parallelism, for each choice")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--use-wandb", action="store_true")
     p.add_argument("--no-resume", action="store_true")
@@ -68,9 +83,12 @@ def load_tokenizer(path: str) -> Callable[[str], List[int]]:
     return lambda s: tok(s).input_ids
 
 
-def build(args, cfg, tokenize: Callable[[str], List[int]]) -> Tuple:
+def build(args, cfg, tokenize: Callable[[str], List[int]],
+          process_index: int = 0, process_count: int = 1) -> Tuple:
     """(data iterator, TrainerArgs) for `train()`: the dataset, collator and
-    iterator the CLI flags and the config describe, over `tokenize`."""
+    iterator the CLI flags and the config describe, over `tokenize`; the
+    iterator yields shard `process_index` of `process_count` of each
+    batch."""
     from metamorph_tpu_torch.train.data import (DataConfig, DataIterator,
                                                 LazySupervisedDataset,
                                                 PackedCollator)
@@ -98,7 +116,9 @@ def build(args, cfg, tokenize: Callable[[str], List[int]]) -> Tuple:
     data_iter = DataIterator(dataset, collator, cfg.train.batch_size,
                              seed=cfg.train.seed,
                              group_by_modality=args.group_by_modality_length,
-                             accum_steps=cfg.train.grad_accum_steps)
+                             accum_steps=cfg.train.grad_accum_steps,
+                             process_index=process_index,
+                             process_count=process_count)
     trainer_args = TrainerArgs(
         output_dir=args.output_dir,
         save_steps=args.save_steps,
@@ -122,9 +142,22 @@ def main(argv=None):
 
     with open(args.config) as f:
         cfg = MetaMorphConfig.from_json(f.read())
-    data_iter, trainer_args = build(args, cfg, load_tokenizer(args.tokenizer))
+    p_idx, p_cnt = 0, 1
+    device = args.device
+    if args.multihost:
+        # before the iterator: each rank loads its own shard
+        from metamorph_tpu_torch.parallel import mesh as mesh_lib
+        from metamorph_tpu_torch.train.trainer import rank_device
+
+        device = rank_device(args.device)
+        mesh_lib.init_distributed(device.type, device=device)
+        p_idx, p_cnt = mesh_lib.dp_coordinate(
+            mesh_lib.build_mesh(cfg.mesh, device.type),
+            cfg.train.sequence_parallel)
+    data_iter, trainer_args = build(args, cfg, load_tokenizer(args.tokenizer),
+                                    p_idx, p_cnt)
     out = train(cfg, trainer_args, data_iter, multihost=args.multihost,
-                device=args.device)
+                device=device)
     print(json.dumps({"final_step": out["step"],
                       "metrics": {k: v for k, v in out["metrics"].items()
                                   if isinstance(v, (int, float))}}))

@@ -25,6 +25,14 @@ bitwise that of the moments kept on the card. JAX fetches the whole
 moment tree into the step; the port overlaps chunk i + 1's copy with
 chunk i's update instead. On the CPU the moments are plain host tensors
 and the same streaming code runs without streams.
+
+Sharded (`make_sharded_train_step`: FSDP2, and tensor parallelism) the
+update runs on each rank's local shards (`local`): the moments are made
+from them, offloaded ones included, and the clip's global norm is the sum
+of squares of the local gradient shards, all-reduced over the ranks that
+hold different shards of each parameter (`norm_groups`: the fsdp group,
+or fsdp x tensor for a parameter cut over tensor), so that a shard held by
+several data replicas counts once.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import math
 from typing import Callable, Dict, Iterator, List, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from metamorph_tpu_torch.config import TrainConfig
@@ -117,6 +126,13 @@ def trainable_mask(model: nn.Module, cfg: TrainConfig) -> Dict[str, bool]:
         return True
 
     return {n: mask(n) for n, _ in model.named_parameters()}
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """The rank's own part of a sharded (DTensor) parameter or gradient;
+    a plain tensor as it is."""
+    to_local = getattr(t, "to_local", None)
+    return t if to_local is None else to_local()
 
 
 def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
@@ -287,26 +303,42 @@ class AdamW:
                 cfg, cfg.vision_tower_lr or cfg.learning_rate),
         }
         self._offload = None
+        # parameter name -> the process group over which its gradient's
+        # local sums of squares add up (set by the sharded step)
+        self.norm_groups: Dict[str, object] = {}
 
     def trainable(self, model: nn.Module):
         return [(n, p) for n, p in model.named_parameters() if self.mask[n]]
 
     def init(self, model: nn.Module) -> dict:
         off = self.cfg.offload_optimizer
+        named = [(n, local(p)) for n, p in self.trainable(model)]
         return {"count": 0,
-                "mu": zero_moments(self.trainable(model), off),
-                "nu": zero_moments(self.trainable(model), off)}
+                "mu": zero_moments(named, off),
+                "nu": zero_moments(named, off)}
 
     @torch.no_grad()
     def global_norm(self, model: nn.Module) -> torch.Tensor:
-        """sqrt of the sum of squares of the trainable gradients (fp32)."""
+        """sqrt of the sum of squares of the trainable gradients (fp32),
+        over the whole of each sharded gradient."""
         params = self.trainable(model)
-        total = torch.zeros((), dtype=torch.float32,
-                            device=params[0][1].device if params else None)
-        for _, p in params:
+        device = local(params[0][1]).device if params else None
+        sums: Dict[object, torch.Tensor] = {}
+        for name, p in params:
+            group = self.norm_groups.get(name)
+            if group not in sums:
+                sums[group] = torch.zeros((), dtype=torch.float32,
+                                          device=device)
             if p.grad is not None:
-                for c in _chunks(p.grad.contiguous()):
-                    total += c.float().square().sum()
+                for c in _chunks(local(p.grad).contiguous()):
+                    sums[group] += c.float().square().sum()
+        total = None
+        for group, s in sums.items():
+            if group is not None:
+                dist.all_reduce(s, group=group)
+            total = s if total is None else total + s
+        if total is None:
+            total = torch.zeros((), dtype=torch.float32, device=device)
         return total.sqrt()
 
     @torch.no_grad()
@@ -324,8 +356,8 @@ class AdamW:
                 # under freeze_vision): Adam sees g = 0 and weight decay
                 # still applies, as with optax's zero gradients
                 p.grad = torch.zeros_like(p)
-            g = p.grad.contiguous()
-            for chunk in zip(_chunks(p), _chunks(g),
+            g = local(p.grad).contiguous()
+            for chunk in zip(_chunks(local(p)), _chunks(g),
                              _chunks(state["mu"][name]),
                              _chunks(state["nu"][name])):
                 items.append(chunk)
@@ -337,7 +369,7 @@ class AdamW:
             adamw_chunk_(pc, g32, mc, nc, lrs[i], count, cfg.adam_b1,
                          cfg.adam_b2, cfg.adam_eps, cfg.weight_decay)
 
-        if cfg.offload_optimizer:
+        if cfg.offload_optimizer and items:
             if self._offload is None:
                 self._offload = _Offload(norm.device)
             self._offload.run(items, step)

@@ -1,5 +1,6 @@
 """Training orchestration: the `train()` entry point (counterpart of
-`metamorph_tpu/train/trainer.py`) on one device.
+`metamorph_tpu/train/trainer.py`), on one device or over a
+(data, fsdp, tensor) mesh of cards.
 
 config -> params (random from a seed, then HF LLaMA / SigLIP weights and a
 stage-1 adapter where the arguments name them) -> train state -> loop with
@@ -21,9 +22,16 @@ of it. As in the JAX package, `train()` adds no factors itself
 no LLM weight under `lora_enable`.
 
 `cfg.train.offload_optimizer` keeps the AdamW moments in pinned host
-memory (`train/optimizer.py`). Not ported yet, and refused with
-NotImplementedError: sequence parallelism and ring attention, multi-host
-and any mesh of more than one device (multi-GPU slice), W&B logging.
+memory (`train/optimizer.py`). W&B logging is not ported (refused).
+
+Over several cards (`multihost=True`, one process per card as torchrun
+starts them, or any process group that exists when `train()` is called)
+each rank takes its device from LOCAL_RANK, builds the mesh of
+`cfg.mesh` over the group and trains through `make_sharded_train_step`;
+`data_iter` yields the rank's own shard of each global batch
+(`DataIterator(process_index, process_count)` with the rank's
+`parallel/mesh.dp_coordinate`). Every rank takes part in each checkpoint;
+rank 0 alone writes it and the metrics, and prints.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metamorph_tpu_torch.config import MetaMorphConfig, resolve_dtype
 from metamorph_tpu_torch.convert import init_params, resolve_device
@@ -43,8 +52,11 @@ from metamorph_tpu_torch.multimodal.packing import PackedBatch, batch_to_arrays
 from metamorph_tpu_torch.train import checkpoint as ckpt_lib
 from metamorph_tpu_torch.train.optimizer import make_optimizer
 from metamorph_tpu_torch.train.prefetch import Prefetcher
+from metamorph_tpu_torch.parallel import mesh as mesh_lib
 from metamorph_tpu_torch.train.train_step import (accum_train_step,
-                                                  init_train_state, train_step)
+                                                  init_train_state,
+                                                  make_sharded_train_step,
+                                                  train_step)
 from metamorph_tpu_torch.utils.logging import MetricsLogger, rank0_print
 
 
@@ -61,28 +73,32 @@ class TrainerArgs:
     hf_llama_path: Optional[str] = None
     hf_siglip_path: Optional[str] = None
     use_wandb: bool = False
-    # "flash" and "xla" run the same code: the port's attention is the
-    # flash Function (its kernels on the card, its plain version on the CPU)
+    # JAX's choice, checked and read nowhere: the port's decoder attention
+    # is the flash Function (its kernels on the card, its plain version on
+    # the CPU) for every impl, and ring attention for every impl under
+    # sequence parallelism (`ops/attention.attention`)
     attn_impl: str = "flash"
 
 
-def _not_ported(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package "
-                               f"yet (the {slice_} slice)")
-
-
-def _check_supported(cfg: MetaMorphConfig, args: TrainerArgs,
-                     multihost: bool, n_devices: int) -> None:
-    if cfg.train.sequence_parallel or args.attn_impl == "ring":
-        raise _not_ported("sequence parallelism / ring attention",
-                          "multi-GPU")
-    if args.attn_impl not in ("flash", "xla"):
+def _check_supported(args: TrainerArgs) -> None:
+    if args.attn_impl not in ("flash", "xla", "ring"):
         raise ValueError(f"unknown attn_impl {args.attn_impl!r}")
-    if multihost:
-        raise _not_ported("multihost training", "multi-GPU")
-    if cfg.mesh.device_count(n_devices) != 1:
-        raise _not_ported(f"a mesh over {cfg.mesh.device_count(n_devices)} "
-                          f"devices ({cfg.mesh})", "multi-GPU")
+
+
+def rank_device(device) -> torch.device:
+    """This rank's device, with its index: cuda:LOCAL_RANK when the caller
+    named the card without an index (or as cuda:0) and torchrun set
+    LOCAL_RANK, else the named card or the current one; it becomes the
+    current device."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return device
+    if device.index in (None, 0) and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    elif device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(device)
+    return device
 
 
 def build_params(cfg: MetaMorphConfig, args: TrainerArgs, seed: int = 0,
@@ -112,17 +128,32 @@ def _to_device(arrays: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 def train(cfg: MetaMorphConfig, args: TrainerArgs,
           data_iter: Iterable, multihost: bool = False,
           device="cuda") -> Dict[str, Any]:
-    """data_iter yields (PackedBatch | dict-of-arrays, pixels [N,S,S,3]).
-    Trains on the card unless the caller passes another `device`; raises
-    when no CUDA device exists and none was named."""
-    device = resolve_device(device)
-    n_devices = torch.cuda.device_count() if device.type == "cuda" else 1
-    _check_supported(cfg, args, multihost, n_devices)
+    """data_iter yields (PackedBatch | dict-of-arrays, pixels [N,S,S,3]),
+    this rank's shard of each batch when sharded. Trains on the card
+    unless the caller passes another `device`; raises when no CUDA device
+    exists and none was named. `multihost` starts the process group from
+    torchrun's environment unless one exists; with a process group the
+    step is sharded over `cfg.mesh`, else it runs on one device (and
+    `cfg.mesh` must cover one)."""
+    _check_supported(args)
+    device = rank_device(device)
+    if multihost:
+        mesh_lib.init_distributed(device.type, device=device)
+    sharded = dist.is_initialized()
     rank0_print(f"device: {device}")
 
     model = build_params(cfg, args, device=device)
-    state = init_train_state(model, cfg)
-    tx = make_optimizer(cfg.train, model)
+    if sharded:
+        mesh = mesh_lib.build_mesh(cfg.mesh, device.type)
+        rank0_print(f"mesh: {mesh_lib.axis_sizes(mesh)}")
+        step_fn, tx, state = make_sharded_train_step(cfg, mesh, model)
+    else:
+        mesh_lib.mesh_shape(cfg.mesh, 1)
+        state = init_train_state(model, cfg)
+        tx = make_optimizer(cfg.train, model)
+        step_fn = None
+    rank0 = not sharded or dist.get_rank() == 0
+    n_chips = dist.get_world_size() if sharded else 1
 
     # ---- auto-resume ----
     start_step = 0
@@ -140,7 +171,8 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
     preempt = ckpt_lib.PreemptionSaver()
     os.makedirs(args.output_dir, exist_ok=True)
     metrics_log = MetricsLogger(
-        log_path=os.path.join(args.output_dir, "metrics.jsonl"),
+        log_path=(os.path.join(args.output_dir, "metrics.jsonl") if rank0
+                  else None),
         use_wandb=args.use_wandb)
     tokens_per_step = cfg.train.batch_size * cfg.train.max_seq_len
 
@@ -156,15 +188,18 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
     def save(step):
         ckpt_lib.save_train_state(args.output_dir, step, state, cfg.to_json(),
                                   consumed_data_state[0])
-        ckpt_lib.prune_checkpoints(args.output_dir, args.save_total_limit)
-        if cfg.train.tune_mm_mlp_adapter:
-            ckpt_lib.save_adapter(
-                os.path.join(args.output_dir, "mm_projector.safetensors"),
-                state["params"])
-        if cfg.train.lora_enable:
-            ckpt_lib.save_lora(
-                os.path.join(args.output_dir, "lora.safetensors"),
-                state["params"])
+        if rank0:
+            ckpt_lib.prune_checkpoints(args.output_dir, args.save_total_limit)
+        for on, name, write, keep in (
+                (cfg.train.tune_mm_mlp_adapter, "mm_projector.safetensors",
+                 ckpt_lib.save_adapter, ckpt_lib.adapter_param),
+                (cfg.train.lora_enable, "lora.safetensors",
+                 ckpt_lib.save_lora, ckpt_lib.lora_param)):
+            if on:
+                # a sharded model is gathered, by every rank
+                model = ckpt_lib.full_model(state, keep)
+                if rank0:
+                    write(os.path.join(args.output_dir, name), model)
 
     step = start_step
     last_metrics = {}
@@ -202,22 +237,27 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
                                     for k in micro[0][0]}, device)
                 pixels = torch.from_numpy(
                     np.stack([m[1] for m in micro])).to(device)
-                state, m = accum_train_step(state, batch, pixels, step_cfg,
-                                            tx)
             else:
                 batch = _to_device(micro[0][0], device)
                 pixels = torch.from_numpy(micro[0][1]).to(device)
+            if step_fn is not None:
+                state, m = step_fn(state, batch, pixels, step_cfg)
+            elif accum > 1:
+                state, m = accum_train_step(state, batch, pixels, step_cfg,
+                                            tx)
+            else:
                 state, m = train_step(state, batch, pixels, step_cfg, tx)
             step += 1
             if step % args.logging_steps == 0:
                 m = {k: float(v) for k, v in m.items()}
                 m.update(data_wait_s=data_wait,
                          step_s=time.perf_counter() - t_start)
-                last_metrics = metrics_log.log(step, m, tokens_per_step, 1)
+                last_metrics = metrics_log.log(step, m, tokens_per_step,
+                                               n_chips)
                 rank0_print(f"step {step}: loss={m['loss']:.4f} "
                             f"(lang={m['loss_language']:.4f} "
                             f"img_ar={m['loss_image_ar']:.4f})")
-            if preempt.should_save():
+            if _any_rank(preempt.should_save(), sharded, device):
                 if saving:
                     save(step)
                 rank0_print("preemption: saved and exiting" if saving
@@ -231,3 +271,13 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
     if saving:
         save(step)
     return {"state": state, "step": step, "metrics": last_metrics}
+
+
+def _any_rank(flag: bool, sharded: bool, device) -> bool:
+    """True on every rank when it is True on one (a preemption signal
+    reaches the ranks apart; the save that follows is collective)."""
+    if not sharded:
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())

@@ -12,6 +12,13 @@ UNet counts as trained from scratch (warmup-then-constant LR). Every 10
 steps the loss and it/s go to stderr and `metrics.jsonl`; the visualizer
 directory (`save_visualizer`, which `load_visualization` and the demo
 read) is written every --save-steps steps and at the end.
+
+Under torchrun (`torchrun --nproc_per_node N -m
+metamorph_tpu_torch.visualizer.main ...`, WORLD_SIZE > 1) the step is
+data-parallel over the ranks, one card each: --batch-size is the global
+batch, each rank reads its own run of the sorted shards
+(`iter_tar_shards(paths, rank, world)`) and takes batch-size / world rows
+of every step; rank 0 alone logs and saves.
 """
 
 from __future__ import annotations
@@ -69,6 +76,22 @@ def main(argv=None):
     from metamorph_tpu_torch.visualizer.vae import VAEConfig
 
     device = resolve_device(args.device)
+    rank, world, mesh = 0, 1, None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from metamorph_tpu_torch.parallel import mesh as mesh_lib
+        from metamorph_tpu_torch.train.trainer import rank_device
+        from torch.distributed.device_mesh import DeviceMesh
+
+        device = rank_device(args.device)
+        mesh_lib.init_distributed(device.type, device=device)
+        rank = torch.distributed.get_rank()
+        world = torch.distributed.get_world_size()
+        mesh = DeviceMesh(device.type, torch.arange(world),
+                          mesh_dim_names=("data",))
+        if args.batch_size % world:
+            raise ValueError(f"--batch-size {args.batch_size} does not "
+                             f"split over {world} ranks")
+    local_batch = args.batch_size // world
     if device.type == "cuda":
         # fp32 means fp32: no TF32 in the convolutions and GEMMs
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -99,7 +122,8 @@ def main(argv=None):
         resolution=args.resolution, total_steps=args.total_steps)
     unet_cfg, vae_cfg = UNetConfig(), VAEConfig()
 
-    step_fn, init_state = make_visualizer_train_step(tc, unet_cfg, vae_cfg)
+    step_fn, init_state = make_visualizer_train_step(tc, unet_cfg, vae_cfg,
+                                                     mesh=mesh)
     state = init_state(tc.seed, device=device, dtype=torch.float32)
     if args.sd:
         from metamorph_tpu_torch.visualizer.hf_import import (
@@ -113,14 +137,13 @@ def main(argv=None):
             device, torch.float32)
 
     os.makedirs(args.output_dir, exist_ok=True)
-    metrics = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl"))
+    metrics = MetricsLogger(os.path.join(args.output_dir, "metrics.jsonl")
+                            if rank == 0 else None)
 
     def batches():
         sig_buf, vae_buf = [], []
         while True:  # resampled shards
-            # one process takes every shard (the split by process is the
-            # multi-GPU slice's)
-            for raw in iter_tar_shards(shards, 0, 1):
+            for raw in iter_tar_shards(shards, rank, world):
                 try:
                     sig, vimg = decode_and_preprocess(
                         raw, sig_cfg.image_size, args.resolution)
@@ -128,7 +151,7 @@ def main(argv=None):
                     continue  # a corrupt image (PIL raises OSError) is skipped
                 sig_buf.append(sig)
                 vae_buf.append(vimg)
-                if len(sig_buf) == args.batch_size:
+                if len(sig_buf) == local_batch:
                     yield np.stack(sig_buf), np.stack(vae_buf)
                     sig_buf, vae_buf = [], []
 
@@ -150,7 +173,8 @@ def main(argv=None):
                             f"({it_s:.2f} it/s)")
                 metrics.log(step, {"loss": float(loss), "it_per_s": it_s})
                 t_last = time.time()
-            if step % args.save_steps == 0 or step >= args.total_steps:
+            if rank == 0 and (step % args.save_steps == 0
+                              or step >= args.total_steps):
                 save_visualizer(args.output_dir, state["adapter"],
                                 state["unet"], state["vae"], unet_cfg,
                                 vae_cfg, args.adapter_mode)

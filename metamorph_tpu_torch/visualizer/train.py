@@ -15,8 +15,14 @@
 The step's five random draws (the drop mask, the noise, t, the noise
 offset and the posterior's eps) all come from `loss_draws`, from one
 explicit `torch.Generator`; replacing that function replaces every draw.
-The step updates the state's trees in place. One device only: a `mesh`
-(the JAX package's data-parallel step) is the multi-GPU slice.
+The step updates the state's trees in place.
+
+With a `mesh` the step is data-parallel over its ranks, as JAX's is over
+its devices: every rank keeps the whole state, takes its own rows of the
+global batch, draws the GLOBAL batch's random numbers from the same
+generator and keeps its own rows of them (so its noise is the rows of the
+one-device step's), and averages the trained trees' gradients and the
+loss over the ranks: the global batch's mean.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from metamorph_tpu_torch.convert import resolve_device
+from metamorph_tpu_torch.parallel.mesh import check_backend
 from metamorph_tpu_torch.train.optimizer import PlainAdamW
 from metamorph_tpu_torch.visualizer.adapter import (apply_adapter,
                                                     init_adapter, pad_tokens)
@@ -165,15 +173,19 @@ def loss_draws(generator: torch.Generator, latents: Tuple[int, ...],
 
 def visualizer_loss(adapter_params: ParamTree, unet_params: ParamTree,
                     vae_params: ParamTree, cfgs, siglip_embeds: torch.Tensor,
-                    images: torch.Tensor, generator: torch.Generator
-                    ) -> torch.Tensor:
+                    images: torch.Tensor, generator: torch.Generator,
+                    rows: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """One training step's loss. cfgs = (train_cfg, unet_cfg, vae_cfg,
-    sched); siglip_embeds [B, 64, 1152], images [B, R, R, 3] in [-1, 1]."""
+    sched); siglip_embeds [B, 64, 1152], images [B, R, R, 3] in [-1, 1].
+    rows = (i, n): the batch is the i-th of n equal shares of a global
+    batch, whose draws are made and cut to this share's rows."""
     tc, unet_cfg, vae_cfg, sched = cfgs
     dev = images.device
-    draws = {k: v.to(dev) for k, v in loss_draws(
-        generator, latent_shape(vae_cfg, images.shape), tc,
-        sched.cfg.num_train_timesteps).items()}
+    i, n = rows
+    B = images.shape[0]
+    shape = latent_shape(vae_cfg, (B * n, *images.shape[1:]))
+    draws = {k: v[i * B:(i + 1) * B].to(dev) for k, v in loss_draws(
+        generator, shape, tc, sched.cfg.num_train_timesteps).items()}
 
     cond = apply_adapter(adapter_params, siglip_embeds, mode=tc.adapter_mode)
     cond = pad_tokens(cond, 77)
@@ -211,11 +223,16 @@ def make_visualizer_train_step(tc: VisualizerTrainConfig, unet_cfg: UNetConfig,
     with `tc.unfreeze_unet` the UNet too, each under its own AdamW
     (optax's adamw, b1 0.9, b2 0.999, weight decay 0.01) and schedule; the
     VAE never does. The frozen UNet still carries the gradient from its
-    output back to the conditioning."""
+    output back to the conditioning. With `mesh` (a DeviceMesh over every
+    rank of the process group) siglip_embeds and images are this rank's
+    rows, the generator is seeded alike on every rank, and the loss is the
+    global batch's."""
+    rows = (0, 1)
     if mesh is not None:
-        raise NotImplementedError(
-            "the visualizer's data-parallel step over a mesh is not ported "
-            "to the PyTorch package yet (the multi-GPU slice)")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the visualizer's mesh must span every rank "
+                             f"({mesh.size()} of {dist.get_world_size()})")
+        rows = (dist.get_rank(), dist.get_world_size())
     sched = sched or DDPMScheduler()
     cfgs = (tc, unet_cfg, vae_cfg, sched)
     adapter_sched, unet_sched = select_lr_schedules(tc)
@@ -229,15 +246,28 @@ def make_visualizer_train_step(tc: VisualizerTrainConfig, unet_cfg: UNetConfig,
         for name in ("adapter", "unet", "vae"):
             state[name].requires_grad_(name in trained)
             _zero_grads(state[name])
+        if mesh is not None:
+            check_backend(images.device)
         loss = visualizer_loss(state["adapter"], state["unet"], state["vae"],
-                               cfgs, siglip_embeds, images, generator)
+                               cfgs, siglip_embeds, images, generator, rows)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            # the global batch's mean: each rank's mean over its equal
+            # share, averaged
+            for name in trained:
+                for p in state[name].parameters():
+                    if p.grad is not None:
+                        dist.all_reduce(p.grad)
+                        p.grad.div_(rows[1])
+            dist.all_reduce(loss)
+            loss.div_(rows[1])
         tx_adapter.update(state["adapter"], state["opt_adapter"])
         if tc.unfreeze_unet:
             tx_unet.update(state["unet"], state["opt_unet"])
         for name in trained:
             _zero_grads(state[name])
-        return state, loss.detach()
+        return state, loss
 
     def init_state(seed: int = 0, device="cuda",
                    dtype: torch.dtype = torch.float32) -> dict:

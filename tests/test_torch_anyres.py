@@ -128,7 +128,7 @@ def anyres_jsonl(tmp_path_factory):
     return str(path)
 
 
-def _anyres_iterators(path, merge_type="spatial_unpad"):
+def _anyres_iterators(path, merge_type="spatial_unpad", **it_kw):
     out = []
     for mod in (D, JD):
         cfg = mod.DataConfig(data_path=path, image_aspect_ratio="anyres",
@@ -138,7 +138,8 @@ def _anyres_iterators(path, merge_type="spatial_unpad"):
             num_image_tokens=4, max_seq_len=48, num_image_slots=2,
             image_size=CROP, image_aspect_ratio="anyres",
             grid_pinpoints=PINPOINTS, merge_type=merge_type)
-        out.append((ds, mod.DataIterator(ds, col, batch_size=2, seed=0)))
+        out.append((ds, mod.DataIterator(ds, col, batch_size=2, seed=0,
+                                         **it_kw)))
     return out
 
 
@@ -289,6 +290,44 @@ def test_anyres_forward_matches_jax(anyres_pair, anyres_jsonl):
     assert float(tm["n_image_ar_tokens"]) == 0.0
     total.backward()
     assert model.image_newline.grad.abs().sum() > 0
+
+
+def test_anyres_rank_shards_match_jax_and_fuse_to_the_global_batch(
+        anyres_pair, anyres_jsonl):
+    """P = 2 over two epochs: rank r's shard equals JAX's
+    DataIterator(process_index=r, process_count=2) shard with JAX's
+    re-basing to the global tables (`shift_packed_anyres_shard`) undone,
+    since a rank of the port gathers from its own views; and the ranks'
+    fused embeddings, each from its own shard and views, concatenated,
+    equal the one-process batch's."""
+    jcfg, _, model = anyres_pair
+    cfg = port_cfg(jcfg)
+    shards = [_anyres_iterators(anyres_jsonl, process_index=r,
+                                process_count=2) for r in range(2)]
+    P_side, vc, tc = shards[0][0][1].collator._anyres_caps(1)
+
+    def fused(packed, pixels):
+        b = {k: _t(v) for k, v in batch_to_arrays(packed).items()}
+        with torch.no_grad():
+            proj, _ = M.encode_images(model, cfg, _t(pixels))
+            return M.fuse_embeddings(model, cfg, b, proj).numpy()
+
+    (_, whole), _ = _anyres_iterators(anyres_jsonl)
+    its = [(iter(m), iter(j)) for (_, m), (_, j) in shards]
+    for g in (b for _, b in zip(range(6), iter(whole))):
+        parts = []
+        for r, (mine, ref) in enumerate(its):
+            (pm, xm), (pr, xr) = next(mine), next(ref)
+            vm = np.asarray(pr.view_map)
+            pr = dataclasses.replace(
+                pr, img_gather_idx=np.where(pr.is_image, pr.img_gather_idx
+                                            - r * tc, tc).astype(np.int32),
+                view_map=np.where(vm >= 0, vm - r * vc * P_side ** 2,
+                                  vm).astype(np.int32))
+            assert_packed_equal(pm, pr)
+            assert np.array_equal(xm, xr)
+            parts.append(fused(pm, xm))
+        np.testing.assert_allclose(np.concatenate(parts), fused(*g), **TOL)
 
 
 def test_conversion_carries_mixer_and_newline_both_ways():

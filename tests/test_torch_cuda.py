@@ -1227,3 +1227,123 @@ def test_offload_loads_wait_for_kernels_queued_on_the_main_stream(
     assert torch.equal(out[True][0], out[False][0])
     for a, b in zip(out[True][1], out[False][1]):
         assert torch.equal(a, b)
+
+
+def test_ring_positions_on_card_match_the_plain_ring(dev):
+    """Every position of a 4-rank ring in turn (`_ring_body` fed from a
+    list of chunks, as chip_smoke.py 14b runs it) on kernels A, C and D
+    against the same ring on the plain versions (fp32 from the same bf16
+    inputs): o within 2e-2 of each row's max |ref| (O_TOL), the q/k/v
+    gradients within BWD_TOL of the tensor's max |ref|, as the backward
+    kernels' tests hold them (a causal row's dq is near zero where it sees
+    few keys, so a row's own max is no scale for it); each kernel launched
+    once per unskipped chunk (4 diagonals, 6 full chunks)."""
+    from metamorph_tpu_torch.parallel import ring_attention as R
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    B, H, KV, Dh, n, C = 2, 8, 2, 128, 4, 192
+    q, k, v, do = (_randn(gen, dev, B, H, n * C, Dh),
+                   _randn(gen, dev, B, KV, n * C, Dh),
+                   _randn(gen, dev, B, KV, n * C, Dh),
+                   _randn(gen, dev, B, H, n * C, Dh))
+
+    def ring(q, k, v, do, dtype):
+        ks = [k[:, :, j * C:(j + 1) * C].float().requires_grad_()
+              for j in range(n)]
+        vs = [v[:, :, j * C:(j + 1) * C].float().requires_grad_()
+              for j in range(n)]
+        outs, dqs = [], []
+        for idx in range(n):
+            sl = slice(idx * C, (idx + 1) * C)
+            qi = q[:, :, sl].clone().requires_grad_()
+            o, _ = R._ring_body(qi, idx, n, R.chunks_source(ks, vs, idx,
+                                                            dtype))
+            o.to(dtype).backward(do[:, :, sl])
+            outs.append(o.detach())
+            dqs.append(qi.grad)
+        return (torch.cat(outs, 2), torch.cat(dqs, 2),
+                torch.cat([x.grad for x in ks], 2),
+                torch.cat([x.grad for x in vs], 2))
+
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    before = [kern.launches for kern in kernels]
+    got = ring(q, k, v, do, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == \
+        [n + n * (n - 1) // 2] * 3
+    cpu = [x.cpu().float() for x in (q, k, v, do)]
+    ref = ring(*cpu, torch.float32)
+    diff = (got[0].float().cpu() - ref[0]).abs().amax(-1)
+    rel = (diff / ref[0].abs().amax(-1).clamp_min(1e-3)).max().item()
+    assert rel <= O_TOL, rel
+    for name, a, r in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        err = (a.float().cpu() - r).abs().max().item()
+        assert err <= BWD_TOL * r.abs().max().item(), (name, err)
+
+
+def test_one_rank_nccl_sharded_step_matches_the_one_card_step(dev, tmp_path):
+    """`make_sharded_train_step` over a one-rank NCCL group, the 4b width
+    (chip_smoke.small_train_cfg), two bf16 steps: the losses, grad norms and
+    every parameter bitwise those of the one-card step; the group is
+    NCCL."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from chip_smoke import small_train_cfg
+    from metamorph_tpu_torch.config import MeshConfig
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.parallel import context
+    from metamorph_tpu_torch.parallel import mesh as M
+    from metamorph_tpu_torch.train import train_step as TS
+    from metamorph_tpu_torch.train.optimizer import local, make_optimizer
+    from metamorph_tpu_torch.train.profile_train import packed_row
+
+    cfg = small_train_cfg()
+    cfg = dataclasses.replace(cfg, mesh=MeshConfig(1, -1, 1),
+                              train=dataclasses.replace(cfg.train,
+                                                        learning_rate=1e-3))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v
+             in batch_to_arrays(packed_row(1024, 4, 2, seed=3)).items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pixels = torch.randn((2, 28, 28, 3), generator=gen, device=dev)
+
+    model = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    state = TS.init_train_state(model, cfg)
+    tx = make_optimizer(cfg.train, model)
+    ref = [TS.train_step(state, batch, pixels, cfg, tx)[1] for _ in range(2)]
+
+    M.init_distributed("cuda", store=dist.FileStore(str(tmp_path / "s"), 1),
+                       rank=0, world_size=1, device=dev)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = M.build_mesh(cfg.mesh, "cuda")
+        sharded = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+        step, _, sstate = TS.make_sharded_train_step(cfg, mesh, sharded)
+        got = [step(sstate, batch, pixels)[1] for _ in range(2)]
+        for a, b in zip(got, ref):
+            for key in ("loss", "grad_norm", "n_text_tokens"):
+                assert float(a[key]) == float(b[key]), key
+        for (n, p), (_, r) in zip(sstate["params"].named_parameters(),
+                                  model.named_parameters()):
+            assert torch.equal(local(p), r), n
+    finally:
+        context.set_current_mesh(None)
+        context.set_sequence_axis(None)
+        dist.destroy_process_group()
+
+
+def test_rank_device_names_the_card(dev, monkeypatch):
+    """`train()`'s device rule: "cuda" becomes the current card with its
+    index (set_device needs one), LOCAL_RANK picks the card under
+    torchrun."""
+    from metamorph_tpu_torch.train.trainer import rank_device
+
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert rank_device("cuda") == torch.device("cuda",
+                                                torch.cuda.current_device())
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert rank_device("cuda") == torch.device("cuda", 0)
+    assert rank_device("cpu") == torch.device("cpu")

@@ -609,10 +609,20 @@ def test_iterator_batches_match_jax_over_two_epochs(mixed_jsonl, mode):
 
 
 def test_iterator_refuses_process_shards(mixed_jsonl):
-    mine, _ = _iterators(mixed_jsonl, batch_size=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        D.DataIterator(mine.dataset, mine.collator, 2, process_index=0,
-                       process_count=2)
+    """Shards that do not split the batch or its image slots evenly are
+    refused with JAX's errors (6 slots; batch 3 over 2 ranks, batch 4 over
+    4 ranks); an even split is taken."""
+    mine, ref = _iterators(mixed_jsonl, batch_size=2)
+    for batch_size, count, match in ((3, 2, "batch_size must divide"),
+                                     (4, 4, "num_image_slots must divide")):
+        for it in (mine, ref):
+            with pytest.raises(ValueError, match=match):
+                type(it)(it.dataset, it.collator, batch_size,
+                         process_index=0, process_count=count)
+    shard = D.DataIterator(mine.dataset, mine.collator, 2, process_index=1,
+                           process_count=2)
+    packed, pixels = next(iter(shard))
+    assert packed.tokens.shape[0] == 1 and pixels.shape[0] == 3
 
 
 def test_collator_packs_natively_and_counts(mixed_jsonl):
@@ -668,7 +678,8 @@ def _write_tokenizer(d):
     return str(d)
 
 
-def test_train_cli_trains_on_the_cpu(mixed_jsonl, tmp_path, capsys):
+def test_train_cli_trains_on_the_cpu(mixed_jsonl, tmp_path, capsys,
+                                    monkeypatch):
     from metamorph_tpu_torch.config import (LlamaConfig, MetaMorphConfig,
                                             MultimodalConfig, SiglipConfig,
                                             TrainConfig)
@@ -700,9 +711,16 @@ def test_train_cli_trains_on_the_cpu(mixed_jsonl, tmp_path, capsys):
     assert (out_dir / "step_2" / "state.pt").exists()
     assert json.loads(capsys.readouterr().out.splitlines()[-1])[
         "final_step"] == 2
-    for flag in (["--multihost"], ["--attn-impl", "ring"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(argv + ["--device", "cpu", "--no-resume"] + flag)
+    # --multihost reads torchrun's environment, which this process lacks;
+    # ring attention without a sequence group runs as flash attention
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        cli.main(argv + ["--device", "cpu", "--no-resume", "--multihost"])
+    ring = cli.main(argv + ["--device", "cpu", "--no-resume", "--attn-impl",
+                            "ring", "--save-steps", "0", "--output-dir",
+                            str(out_dir) + "_ring"])
+    assert ring["step"] == 2
     # the weight flags reach train(), which reads the files they name
     for flag in (["--hf-llama-path", "/nowhere"],
                  ["--hf-siglip-path", "/nowhere"],

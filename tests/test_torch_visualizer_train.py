@@ -388,8 +388,23 @@ def test_plain_adamw_matches_optax_on_equal_gradients(tiny_state):
 def test_step_needs_one_device_and_a_card_unless_told(monkeypatch):
     _, (tucfg, tvcfg) = _cfgs()
     tc = ttrain.VisualizerTrainConfig()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ttrain.make_visualizer_train_step(tc, tucfg, tvcfg, mesh=object())
+    # a mesh must span every rank of a process group (one rank here; the
+    # data-parallel step itself is held to JAX's in
+    # tests/test_torch_sharded_train.py)
+    import torch.distributed as dist
+
+    class TwoRanks:
+        def size(self):
+            return 2
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match="must span every rank"):
+            ttrain.make_visualizer_train_step(tc, tucfg, tvcfg,
+                                              mesh=TwoRanks())
+    finally:
+        dist.destroy_process_group()
     _, init = ttrain.make_visualizer_train_step(tc, tucfg, tvcfg)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
