@@ -57,6 +57,7 @@ from metamorph_tpu_torch.inference.spec_decode import (_draft_embed,
                                                        make_ngram_draft)
 from metamorph_tpu_torch.models import llama as llama_lib
 from metamorph_tpu_torch.models import metamorph as mm_lib
+from metamorph_tpu_torch.utils import trace
 
 
 @dataclass
@@ -867,8 +868,18 @@ class ServeEngine:
     # -- scheduling ---------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        """Validate here, so a bad request fails alone instead of inside
-        step() with every in-flight request."""
+        """Queue a request, stamped on the host clock (`perf_counter`, the
+        clock of the spans and of a device trace)."""
+        with trace.span("serve.submit", uid=req.uid):
+            self._check(req)
+            if req.temperature > 0:
+                self._sampling = True
+            req.t_submit = time.perf_counter()
+            self.pending.append(req)
+
+    def _check(self, req: Request) -> None:
+        """Validate at submit, so a bad request fails alone instead of
+        inside step() with every in-flight request."""
         if (req.prompt_ids is None) == (req.prompt_embeds is None):
             raise ValueError(
                 "exactly one of prompt_ids / prompt_embeds must be set")
@@ -910,10 +921,6 @@ class ServeEngine:
             raise ValueError("temperature must be >= 0 (0 = greedy)")
         if not 0 < req.top_p <= 1:
             raise ValueError("top_p must be in (0, 1]")
-        if req.temperature > 0:
-            self._sampling = True
-        req.t_submit = time.monotonic()
-        self.pending.append(req)
 
     @property
     def spec_accepted(self) -> int:
@@ -985,7 +992,7 @@ class ServeEngine:
                 _prefill_admit_ids(self.model, self.state, self.cfg,
                                    tensor(ids, torch.int32), img, img_pos,
                                    lens, slot_t, *common, draft=self._draft)
-        now = time.monotonic()
+        now = time.perf_counter()
         for slot, req in zip(slots, reqs):
             self.slot_uid[slot] = req.uid
             self.slot_t_admit[slot] = now
@@ -1004,18 +1011,20 @@ class ServeEngine:
         ev.record()
         self._snap = (self._snap_host, ev)
 
-    def _harvest(self) -> None:
+    def _harvest(self) -> List[Any]:
         """Move finished rows (occupied but no longer active) to completed,
         using the PREVIOUS tick's packed snapshot, and update each row's
         speculation rate. Rows are final once inactive, so its ids are their
         final ids; only img_embeds need a live fetch, and only for rows that
         emitted images. Filling slots still hold the previous request's
-        lanes until their admitting chunk and are skipped."""
+        lanes until their admitting chunk and are skipped. Returns the
+        finished requests' uids."""
         if self._snap is None:
-            return
+            return []
         host, ev = self._snap
         if ev is not None:
-            ev.synchronize()
+            with trace.span("serve.harvest.wait"):
+                ev.synchronize()
         snap = host.numpy().copy()
         self._snap = None
         active, n_ids, n_img, steps = snap[:, 0], snap[:, 1], snap[:, 2], \
@@ -1053,12 +1062,13 @@ class ServeEngine:
                if s not in filling and self.slot_uid[s] is not None
                and not active[s]]
         if not fin:
-            return
+            return []
+        uids = [self.slot_uid[s] for s in fin]
         Dv = self.state.img_embeds.shape[-1]
         need_img = [s for s in fin if n_img[s]]
         img_rows = (self.state.img_embeds[need_img].cpu().numpy()
                     if need_img else None)
-        now = time.monotonic()
+        now = time.perf_counter()
         for s in fin:
             emb = (img_rows[need_img.index(s)][:n_img[s]]
                    if n_img[s] else np.zeros((0, Dv), np.float32))
@@ -1068,6 +1078,7 @@ class ServeEngine:
                 queue_s=self.slot_queue_s[s],
                 serve_s=now - self.slot_t_admit[s]))
             self.slot_uid[s] = None
+        return uids
 
     def _spec_worth_it(self, occ, n: int) -> bool:
         """Per-row spec/plain routing: run the speculative program iff the
@@ -1182,7 +1193,7 @@ class ServeEngine:
             _decode_fill_all_ids(self.model, self.state, self.cfg,
                                  torch.as_tensor(chunk_ids).to(dev), img,
                                  img_pos, on, *common)
-        now = time.monotonic()
+        now = time.perf_counter()
         for f in [f for f in self._fills if f["chunk"] >= f["nchunks"]]:
             slot, req = f["slot"], f["req"]    # admitted during the tick
             self.slot_t_admit[slot] = now
@@ -1211,8 +1222,26 @@ class ServeEngine:
         while fills are in flight, else spec steps (when speculation is on
         and the rows' rates say it pays) or plain decode steps. The tick
         starts by harvesting the previous tick's snapshot and ends by
-        starting this tick's copy."""
-        self._harvest()
+        starting this tick's copy.
+
+        Traced (`utils/trace`), the tick is a `serve.step` span holding
+        one span per phase: `serve.harvest` (its wait on the snapshot's
+        event as `serve.harvest.wait`), a `serve.admit` per batched
+        prefill (its bucket, rows, and each row's prompt length, image
+        or not and uid: bucket x rows less the lengths is its padding),
+        then `serve.fill` or `serve.decode`, and `serve.snapshot`."""
+        with trace.span("serve.step"):
+            with trace.span("serve.harvest") as sp:
+                sp.set(uids=self._harvest())
+            self._admit_pending()
+            self._tick()
+            with trace.span("serve.snapshot"):
+                self._fetch_snapshot()
+
+    def _admit_pending(self) -> None:
+        """The tick's admissions: blocking batched prefills while slots
+        are free and the head of the queue is not for chunked fill, then
+        chunked fills for the long prompts."""
         free = [s for s in range(self.n_slots) if self.slot_uid[s] is None]
         fill_slots = {f["slot"] for f in self._fills}
         decoding = any(self.slot_uid[s] is not None and s not in fill_slots
@@ -1229,40 +1258,54 @@ class ServeEngine:
             k = 1 << (k.bit_length() - 1)
             reqs = [self.pending.pop(0) for _ in range(k)]
             slots = [free.pop(0) for _ in range(k)]
-            self._admit_many(slots, reqs, b0)
+            with trace.span("serve.admit", bucket=b0, rows=k) as sp:
+                if trace.enabled():
+                    sp.set(lens=[r.prompt_len for r in reqs],
+                           image=[r.image_embeds is not None for r in reqs],
+                           uids=[r.uid for r in reqs])
+                self._admit_many(slots, reqs, b0)
             self.tick_counts["prefill"] += 1
             decoding = True
         while (free and self._head_is_chunkable(decoding)
                and self._can_join_fills(self.pending[0])):
             self._start_fill(free.pop(0), self.pending.pop(0))
 
+    def _tick(self) -> None:
+        """The tick's device steps: fill steps while fills are in flight,
+        else spec or plain decode steps over the occupied rows."""
         fill_slots = {f["slot"] for f in self._fills}
         occ = [s for s in range(self.n_slots)
                if self.slot_uid[s] is not None and s not in fill_slots]
         n = 1 << (self.steps_per_sync.bit_length() - 1)
         if self._fills:
-            self._fill_tick(n)
+            with trace.span("serve.fill", steps=n, rows=len(occ)):
+                self._fill_tick(n)
             self.tick_counts["fill"] += 1
         elif occ:
             if self.spec_k and self._spec_worth_it(occ, n):
-                if self._draft is not None:
-                    _decode_all_spec_draft(
-                        self.model, *self._draft, self.state, self.cfg,
-                        self._eos_ids, self._special_ids, n, self.spec_k,
-                        self._sampling, self.generator)
-                else:
-                    _decode_all_spec(self.model, self.state, self.cfg,
-                                     self._eos_ids, self._special_ids, n,
-                                     self.spec_k, self._sampling,
-                                     self.generator)
+                program = "draft" if self._draft is not None else "spec"
+                with trace.span("serve.decode", program=program, steps=n,
+                                rows=len(occ)):
+                    if self._draft is not None:
+                        _decode_all_spec_draft(
+                            self.model, *self._draft, self.state, self.cfg,
+                            self._eos_ids, self._special_ids, n, self.spec_k,
+                            self._sampling, self.generator)
+                    else:
+                        _decode_all_spec(self.model, self.state, self.cfg,
+                                         self._eos_ids, self._special_ids, n,
+                                         self.spec_k, self._sampling,
+                                         self.generator)
                 self._mark_spec_tick(occ, n)
                 self.tick_counts["spec"] += 1
             else:
                 self._ticks_since_spec += 1
-                _decode_all(self.model, self.state, self.cfg, self._eos_ids,
-                            n, self._sampling, self.generator)
+                with trace.span("serve.decode", program="plain", steps=n,
+                                rows=len(occ)):
+                    _decode_all(self.model, self.state, self.cfg,
+                                self._eos_ids, n, self._sampling,
+                                self.generator)
                 self.tick_counts["plain"] += 1
-        self._fetch_snapshot()
 
     def run(self, max_ticks: int = 100_000) -> List[Completed]:
         """Drive until every submitted request completes."""

@@ -46,6 +46,7 @@ import torch.distributed as dist
 from torch import nn
 
 from metamorph_tpu_torch.config import TrainConfig
+from metamorph_tpu_torch.utils import trace
 
 CHUNK = 64 * 1024 * 1024      # elements per fp32 chunk (256 MB)
 
@@ -344,7 +345,8 @@ class AdamW:
     @torch.no_grad()
     def update(self, model: nn.Module, state: dict) -> torch.Tensor:
         cfg = self.cfg
-        norm = self.global_norm(model)
+        with trace.span("train.grad_norm"):
+            norm = self.global_norm(model)
         count = state["count"]
         max_norm = cfg.grad_clip_norm
         clip = norm >= max_norm

@@ -20,6 +20,10 @@ by the global batch's token counts, FSDP2 sums the gradients over the
 ranks, and the update runs on each rank's shards (`train/optimizer.py`).
 Each rank runs SigLIP and the projector on its own images; ranks that
 share rows (sequence peers) encode the same images.
+
+Traced (`utils/trace`), each microbatch is a `train.forward` and a
+`train.backward` span (with its index), and the update a
+`train.optimizer` span holding `train.grad_norm`.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from metamorph_tpu_torch.config import MetaMorphConfig
 from metamorph_tpu_torch.models.metamorph import MetaMorph
 from metamorph_tpu_torch.parallel.context import BatchShard
 from metamorph_tpu_torch.train.optimizer import AdamW, make_optimizer
+from metamorph_tpu_torch.utils import trace
 
 TrainState = dict   # {"params", "opt_state", "step"}
 
@@ -64,10 +69,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     update."""
     model = state["params"]
     _zero_grads(model)
-    total, metrics = loss_fn(model, cfg, batch, pixels, shard)
-    total.backward()
+    with trace.span("train.forward", index=0):
+        total, metrics = loss_fn(model, cfg, batch, pixels, shard)
+    with trace.span("train.backward", index=0):
+        total.backward()
     metrics = dict(metrics)
-    metrics["grad_norm"] = tx.update(model, state["opt_state"])
+    with trace.span("train.optimizer"):
+        metrics["grad_norm"] = tx.update(model, state["opt_state"])
     state["step"] += 1
     return state, metrics
 
@@ -83,17 +91,19 @@ def accum_train_step(state: TrainState, batches: Dict[str, torch.Tensor],
     _zero_grads(model)
     sums: Dict[str, torch.Tensor] = {}
     for i in range(n):
-        total, metrics = loss_fn(model, cfg,
-                                 {k: v[i] for k, v in batches.items()},
-                                 pixels[i], shard)
-        total.backward()
+        micro = {k: v[i] for k, v in batches.items()}
+        with trace.span("train.forward", index=i):
+            total, metrics = loss_fn(model, cfg, micro, pixels[i], shard)
+        with trace.span("train.backward", index=i):
+            total.backward()
         for k, v in metrics.items():
             sums[k] = sums[k] + v if k in sums else v
     for p in model.parameters():
         if p.grad is not None:
             p.grad.div_(n)
     metrics = {k: v / n for k, v in sums.items()}
-    metrics["grad_norm"] = tx.update(model, state["opt_state"])
+    with trace.span("train.optimizer"):
+        metrics["grad_norm"] = tx.update(model, state["opt_state"])
     state["step"] += 1
     return state, metrics
 

@@ -174,7 +174,12 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
         log_path=(os.path.join(args.output_dir, "metrics.jsonl") if rank0
                   else None),
         use_wandb=args.use_wandb)
-    tokens_per_step = cfg.train.batch_size * cfg.train.max_seq_len
+    # throughput counts real tokens (attention-mask sums, on the host);
+    # sharded, the log step sums them over the ranks, and each rank's rows
+    # are loaded by `peers` ranks (tensor and sequence peers)
+    peers = (n_chips // mesh_lib.dp_coordinate(
+        mesh, cfg.train.sequence_parallel)[1] if sharded else 1)
+    tokens_since_log = 0
 
     # each item carries the iterator state at production time, so resume
     # replays from the right position even with batches in flight
@@ -222,6 +227,7 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
                 else:
                     b = dict(packed)
                     micro_K.append(cfg.mm.num_image_tokens)
+                tokens_since_log += int(np.asarray(b["attn_mask"]).sum())
                 micro.append((b, np.asarray(pixels)))
             K = micro_K[0]
             if any(k != K for k in micro_K):
@@ -252,8 +258,9 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
                 m = {k: float(v) for k, v in m.items()}
                 m.update(data_wait_s=data_wait,
                          step_s=time.perf_counter() - t_start)
-                last_metrics = metrics_log.log(step, m, tokens_per_step,
-                                               n_chips)
+                tokens = _rank_sum(tokens_since_log, sharded, device) // peers
+                last_metrics = metrics_log.log(step, m, tokens, n_chips)
+                tokens_since_log = 0
                 rank0_print(f"step {step}: loss={m['loss']:.4f} "
                             f"(lang={m['loss_language']:.4f} "
                             f"img_ar={m['loss_image_ar']:.4f})")
@@ -271,6 +278,15 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
     if saving:
         save(step)
     return {"state": state, "step": step, "metrics": last_metrics}
+
+
+def _rank_sum(n: int, sharded: bool, device) -> int:
+    """n summed over the ranks."""
+    if not sharded:
+        return n
+    t = torch.tensor([n], dtype=torch.int64, device=device)
+    dist.all_reduce(t)
+    return int(t.item())
 
 
 def _any_rank(flag: bool, sharded: bool, device) -> bool:

@@ -23,7 +23,9 @@ def rank0_print(*args):
 
 class MetricsLogger:
     """Per-step scalars {loss, loss_language, loss_image_ar, grad_norm,
-    tokens/s/chip} to JSONL."""
+    tokens/s/chip} to JSONL. `tokens` of a `log` call are those trained
+    since the previous logged step, which it divides by the time between
+    the two."""
 
     def __init__(self, log_path: Optional[str] = None, use_wandb: bool = False):
         if use_wandb:
@@ -34,14 +36,14 @@ class MetricsLogger:
         self._f = open(log_path, "a") if log_path else None
 
     def log(self, step: int, metrics: Dict[str, float],
-            tokens_per_step: Optional[int] = None, n_chips: int = 1):
+            tokens: Optional[int] = None, n_chips: int = 1):
         now = time.time()
         row = {"step": step, "time": now}
         row.update({k: float(v) for k, v in metrics.items()})
-        if tokens_per_step and self._t_last is not None:
+        if tokens and self._t_last is not None:
             dt = now - self._t_last
             if dt > 0:
-                row["tokens_per_sec_per_chip"] = tokens_per_step / dt / n_chips
+                row["tokens_per_sec_per_chip"] = tokens / dt / n_chips
         self._t_last = now
         if self._f:
             self._f.write(json.dumps(row) + "\n")

@@ -699,13 +699,30 @@ def test_train_cli_trains_on_the_cpu(mixed_jsonl, tmp_path, capsys,
             "--group-by-modality-length"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)                      # the card by default
+    from metamorph_tpu_torch.train import trainer
+
+    real = []                               # each step's real tokens
+    to_arrays = trainer.batch_to_arrays
+
+    def counting(packed):
+        arrays = to_arrays(packed)
+        real.append(int(arrays["attn_mask"].sum()))
+        return arrays
+
+    monkeypatch.setattr(trainer, "batch_to_arrays", counting)
     out = cli.main(argv + ["--device", "cpu"])
+    monkeypatch.setattr(trainer, "batch_to_arrays", to_arrays)
     assert out["step"] == 2
     rows = [json.loads(l) for l in (out_dir / "metrics.jsonl").read_text()
             .splitlines()]
     assert [r["step"] for r in rows] == [1, 2]
     assert all(np.isfinite(r["loss"]) and r["n_text_tokens"] > 0
                and r["data_wait_s"] >= 0 and r["step_s"] > 0 for r in rows)
+    # throughput counts the step's real tokens, not batch x max_seq_len
+    assert len(real) == 2 and 0 < real[1] < 2 * 48
+    assert rows[1]["tokens_per_sec_per_chip"] * (
+        rows[1]["time"] - rows[0]["time"]) == pytest.approx(real[1],
+                                                           rel=1e-6)
     meta = json.loads((out_dir / "step_2" / "meta.json").read_text())
     assert meta["data_state"]["step_in_epoch"] >= 2
     assert (out_dir / "step_2" / "state.pt").exists()

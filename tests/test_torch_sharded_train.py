@@ -34,6 +34,7 @@ tests/test_torch_visualizer_train.py.
 """
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -482,6 +483,18 @@ def test_train_over_two_ranks_resumes_like_an_unbroken_run(tmp_path,
         assert np.array_equal(p.detach().float().numpy(), got[f"r_{n}"]), n
     rows = (tmp_path / "resumed" / "metrics.jsonl").read_text().splitlines()
     assert len(rows) == 4
+    # throughput counts each step's real tokens over both ranks' rows
+    # (step k reads the seed k % 2 rows); the ranks' counts differ
+    whole = [json.loads(r) for r in
+             (tmp_path / "whole" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in whole] == [1, 2, 3, 4]
+    real = {seed: [int(rank_batch(seed, i, 2)[0]["attn_mask"].sum())
+                   for i in (0, 1)] for seed in (0, 1)}
+    assert any(a != b for a, b in real.values())
+    for prev, row in zip(whole, whole[1:]):
+        assert row["tokens_per_sec_per_chip"] * 2 * (
+            row["time"] - prev["time"]) == pytest.approx(
+                sum(real[row["step"] % 2]), rel=1e-6), row["step"]
     _assert_saved_files(tmp_path, monkeypatch)
 
 
