@@ -11,6 +11,8 @@ positions (`cache_lens`) make the rows ragged in time. The pieces:
     the first state-machine transition from the last prompt position; the
     ids form embeds and splices image tokens on the device;
   * `_decode_all`: `steps_per_sync` single-token steps over every slot;
+    on CUDA, a greedy engine replays it from a captured graph
+    (`_TickGraph`, `ServeEngine._plain_tick`);
   * `_decode_all_spec` / `_spec_verify_tick` (`spec_k > 1`): each step runs
     one batched verify chunk of [next token + spec_k - 1 prompt-lookup
     drafts] per row and accepts the matching prefix for greedy rows, so
@@ -57,6 +59,9 @@ from metamorph_tpu_torch.inference.spec_decode import (_draft_embed,
                                                        make_ngram_draft)
 from metamorph_tpu_torch.models import llama as llama_lib
 from metamorph_tpu_torch.models import metamorph as mm_lib
+from metamorph_tpu_torch.ops.decode_attention import (DECODE_ATTN,
+                                                      DECODE_ATTN_INT8)
+from metamorph_tpu_torch.ops.quant import W8_MATMUL
 from metamorph_tpu_torch.utils import trace
 
 
@@ -182,6 +187,64 @@ def _decode_all(model, state: ServeState, cfg: MetaMorphConfig,
         _advance_rows(model, cfg, state, h[:, 0], state.active, K, eos_ids,
                       sampling, generator)
     return state
+
+
+# The ServeState tensors a plain tick that does not sample reads or writes:
+# a captured tick's static buffers. The cache is written in place and keys
+# the graph instead.
+_PLAIN_TICK_FIELDS = ("cache_lens", "next_embed", "in_image", "img_count",
+                      "ids", "n_ids", "img_embeds", "n_img", "steps",
+                      "max_new", "active", "ids_all", "n_all")
+
+# the kernels a plain tick launches, whose host calls a capture records
+_TICK_KERNELS = (DECODE_ATTN, DECODE_ATTN_INT8, W8_MATMUL)
+
+
+def _cuda_graph(fn):
+    """Capture the kernels `fn` launches as a CUDA graph, on
+    `torch.cuda.graph`'s side stream: `fn`'s Python runs once and its
+    launches are recorded, not run. Only this thread's calls are held to
+    the capture's rules (`thread_local`). `replay()` launches the graph on
+    the current stream."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    return graph
+
+
+class _TickGraph:
+    """One plain tick captured for replay: `tick` (`_decode_all`'s steps)
+    then `bind`. Its static buffers are the state's tensors when it was
+    captured. Eager code between replays (admissions) may rebind fields to
+    new tensors: `bind` copies each such field into its buffer and points
+    the state back at it, inside the capture after the steps and before
+    each replay. `launches` holds each kernel's host calls during the
+    capture, which ran nothing: each replay runs them once."""
+
+    def __init__(self, capture, state: ServeState, tick):
+        self.bufs = {f: getattr(state, f) for f in _PLAIN_TICK_FIELDS}
+        before = [k.launches for k in _TICK_KERNELS]
+
+        def run():
+            tick()
+            self.bind(state)
+
+        self.graph = capture(run)
+        self.launches = {k.symbol: k.launches - n
+                         for k, n in zip(_TICK_KERNELS, before)}
+        self.replays = 0
+
+    def bind(self, state: ServeState) -> None:
+        for f, buf in self.bufs.items():
+            t = getattr(state, f)
+            if t is not buf:
+                buf.copy_(t)
+                setattr(state, f, buf)
+
+    def replay(self, state: ServeState) -> None:
+        self.bind(state)
+        self.graph.replay()
+        self.replays += 1
 
 
 def _spec_verify_tick(model, state: ServeState, cfg: MetaMorphConfig,
@@ -805,8 +868,18 @@ class ServeEngine:
         self._fills: list = []   # in-progress chunked fills (FIFO)
         self.max_fills = max(int(max_fills), 1)
         # ticks by the program they ran: "prefill" (blocking admissions),
-        # "fill", "spec", "plain"
-        self.tick_counts = {"prefill": 0, "fill": 0, "spec": 0, "plain": 0}
+        # "fill", "spec", "plain"; of the plain ones, "plain_graphed" were
+        # replayed from a captured graph, and "captures" counts the graphs
+        self.tick_counts = {"prefill": 0, "fill": 0, "spec": 0, "plain": 0,
+                            "plain_graphed": 0, "captures": 0}
+        # plain ticks that do not sample replay a CUDA graph per key
+        # (`_plain_tick`); not on the CPU, and not for a model split by
+        # tensor parallelism, whose collectives stay out of a capture
+        split = any(layer.tp_group is not None
+                    for layer in model.llama.layers)
+        self._capture = (_cuda_graph if dev.type == "cuda" and not split
+                         else None)
+        self._graphs: Dict[tuple, Optional[_TickGraph]] = {}
         # the packed status travels to a reused pinned host buffer behind
         # the next tick's device work (CUDA), read one tick later
         snap_shape = (n_slots, _SNAP_HEAD + max_new_tokens_cap)
@@ -1229,7 +1302,8 @@ class ServeEngine:
         event as `serve.harvest.wait`), a `serve.admit` per batched
         prefill (its bucket, rows, and each row's prompt length, image
         or not and uid: bucket x rows less the lengths is its padding),
-        then `serve.fill` or `serve.decode`, and `serve.snapshot`."""
+        then `serve.fill` or `serve.decode` (a plain one says whether it
+        replayed a graph: `graph`), and `serve.snapshot`."""
         with trace.span("serve.step"):
             with trace.span("serve.harvest") as sp:
                 sp.set(uids=self._harvest())
@@ -1301,11 +1375,51 @@ class ServeEngine:
             else:
                 self._ticks_since_spec += 1
                 with trace.span("serve.decode", program="plain", steps=n,
-                                rows=len(occ)):
-                    _decode_all(self.model, self.state, self.cfg,
-                                self._eos_ids, n, self._sampling,
-                                self.generator)
+                                rows=len(occ)) as sp:
+                    sp.set(graph=self._plain_tick(n))
                 self.tick_counts["plain"] += 1
+
+    def _plain_tick(self, n: int) -> bool:
+        """n plain decode steps, replayed from the CUDA graph of their key
+        (n, the slots, the cache's storage) where the engine captures and
+        does not sample, else run eagerly. A key's first tick runs eagerly,
+        so that kernel B's workspace, kernel F's plans and the libraries'
+        handles exist before a capture; its second captures, then replays.
+        Returns whether the tick was replayed."""
+        def tick():
+            _decode_all(self.model, self.state, self.cfg, self._eos_ids, n,
+                        self._sampling, self.generator)
+
+        if self._capture is None or self._sampling:
+            tick()
+            return False
+        key = (n, self.n_slots) + tuple(
+            (name, t.data_ptr(), t.dtype)
+            for name, t in sorted(self.state.cache.items()))
+        if key not in self._graphs:
+            self._graphs[key] = None
+            tick()
+            return False
+        graph = self._graphs[key]
+        if graph is None:
+            graph = _TickGraph(self._capture, self.state, tick)
+            self._graphs[key] = graph
+            self.tick_counts["captures"] += 1
+        graph.replay(self.state)
+        self.tick_counts["plain_graphed"] += 1
+        return True
+
+    def graph_launches(self) -> Dict[str, Tuple[int, int]]:
+        """Per kernel of a plain tick: (host calls made while capturing,
+        which ran nothing; launches its replays ran), over this engine's
+        graphs. A kernel's `launches` less the first plus the second is
+        what ran on the card."""
+        out = {}
+        for g in filter(None, self._graphs.values()):
+            for sym, n in g.launches.items():
+                c, r = out.get(sym, (0, 0))
+                out[sym] = (c + n, r + n * g.replays)
+        return out
 
     def run(self, max_ticks: int = 100_000) -> List[Completed]:
         """Drive until every submitted request completes."""

@@ -1,7 +1,8 @@
 """PyTorch port, CUDA kernels on the card: each kernel against its plain
 PyTorch version (fp32 math and fp32 output from the same bf16 inputs), the
 launch counters,
-and the wrappers' input checks; the visualizer's render on the card
+and the wrappers' input checks; the serving engine's plain ticks replayed
+from CUDA graphs against its eager ticks; the visualizer's render on the card
 against the CPU, and its loader's device rule; the offloaded AdamW
 (pinned moments, bitwise the on-card update, a failed pin raising).
 Skips where there is no CUDA device.
@@ -1059,6 +1060,87 @@ def test_int8_model_on_card_matches_cpu(dev):
     # 7 products per layer in the prefill and in the step, and the head
     assert Q.W8_MATMUL.launches == 2 * 7 * 2 + 1
 
+
+
+@pytest.mark.parametrize("case", ["bf16", "bf16_image", "kv_int8", "w8"])
+def test_graphed_plain_ticks_equal_eager_ticks_on_card(dev, case):
+    """A small MetaMorph served twice on the card through the same
+    admissions between ticks: an engine that replays its plain ticks from
+    CUDA graphs and one that runs `_decode_all` eagerly (no capture) hold
+    equal ids, lengths, next_embed and img_embeds after every tick, and
+    finish with equal requests. Over a bf16 cache (text, and rows forced
+    into image generation), the int8 KV cache, and kernel F weights."""
+    import numpy as np
+
+    from metamorph_tpu_torch.config import (LlamaConfig, MetaMorphConfig,
+                                            MultimodalConfig, SiglipConfig)
+    from metamorph_tpu_torch.constants import IM_START_TOKEN_ID
+    from metamorph_tpu_torch.convert import init_params
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+    from metamorph_tpu_torch.ops.quant import quantize_llama_decode
+
+    cfg = MetaMorphConfig(
+        llama=LlamaConfig(vocab_size=128258, hidden_size=256,
+                          intermediate_size=512, num_layers=2, num_heads=8,
+                          num_kv_heads=2, head_dim=64, rope_scaling=False,
+                          tie_word_embeddings=False),
+        siglip=SiglipConfig.tiny(), mm=MultimodalConfig(num_image_tokens=4))
+    model = init_params(cfg, seed=5, device=dev)
+    model.requires_grad_(False)
+    if case == "bf16_image":
+        with torch.no_grad():
+            model.llama.lm_head[:, IM_START_TOKEN_ID] = 4.0
+    if case == "w8":
+        model.llama = quantize_llama_decode(model.llama)
+    rng = np.random.default_rng(2)
+    reqs = [dict(prompt_ids=rng.integers(10, 128000, (t,)).astype(np.int32),
+                 max_new_tokens=b, uid=i)
+            for i, (t, b) in enumerate([(12, 21), (40, 14), (7, 30),
+                                        (60, 11), (25, 17)])]
+    plan = [0, 0, 2, 3, 6]
+    runs = []
+    for graphed in (False, True):
+        eng = ServeEngine(model, cfg, n_slots=4, max_cache_len=256,
+                          max_new_tokens_cap=32, max_images=4,
+                          prefill_buckets=(16, 32, 64), steps_per_sync=4,
+                          kv_int8=case == "kv_int8")
+        if not graphed:
+            eng._capture = None
+        seen = []
+        with torch.no_grad():
+            for t in range(100):
+                for r, at in zip(reqs, plan):
+                    if at == t:
+                        eng.submit(Request(**r))
+                if t > max(plan) and not (eng.pending or any(
+                        u is not None for u in eng.slot_uid)):
+                    break
+                eng.step()
+                st = eng.state
+                seen.append([x.clone() for x in (
+                    st.ids, st.cache_lens, st.next_embed, st.img_embeds)])
+        runs.append((eng, {c.uid: c for c in eng.completed}, seen))
+    (eager, ref, ref_seen), (eng, out, seen) = runs
+    assert eager.tick_counts["plain_graphed"] == 0
+    assert eng.tick_counts["captures"] == 1
+    assert eng.tick_counts["plain_graphed"] == eng.tick_counts["plain"] - 1
+    kern = "mm_decode_attn_int8" if case == "kv_int8" else "mm_decode_attn_bf16"
+    captured, replayed = eng.graph_launches()[kern]
+    assert captured == 4 * 2 and replayed == captured * eng.tick_counts[
+        "plain_graphed"]
+    if case == "w8":
+        assert eng.graph_launches()["mm_w8_matmul"][0] == 4 * (2 * 7 + 1)
+    assert sorted(out) == sorted(ref) == list(range(5))
+    for uid, c in ref.items():
+        assert np.array_equal(out[uid].ids, c.ids), uid
+        assert out[uid].steps == c.steps
+        assert np.array_equal(out[uid].image_embeds, c.image_embeds)
+    if case == "bf16_image":
+        assert sum(c.image_embeds.shape[0] for c in ref.values()) > 0
+    assert len(seen) == len(ref_seen)
+    for k, (a, b) in enumerate(zip(seen, ref_seen)):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), k
 
 def _tiny_visualizer(device):
     from metamorph_tpu_torch.visualizer import adapter, unet, vae

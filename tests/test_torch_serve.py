@@ -182,3 +182,106 @@ def test_port_embeds_admission_and_streaming_match_ids_path(jax_params):
     for uid in a:
         np.testing.assert_array_equal(a[uid].ids, b[uid].ids)
         assert streamed[uid] == a[uid].ids.tolist()
+
+
+def _rerun_capture(eng):
+    """CPU stand-in for `serve._cuda_graph`: the "graph" re-runs the
+    captured closure at each replay, after checking that the state holds
+    the static buffers it was captured on (what a real replay reads and
+    writes), and checks that the closure leaves the state on them."""
+    from metamorph_tpu_torch.inference import serve as S
+
+    def capture(fn):
+        bufs = {f: getattr(eng.state, f) for f in S._PLAIN_TICK_FIELDS}
+
+        def on_buffers():
+            return all(getattr(eng.state, f) is b for f, b in bufs.items())
+
+        class Rerun:
+            def replay(self):
+                assert on_buffers()
+                fn()
+                assert on_buffers()
+
+        return Rerun()
+
+    return capture
+
+
+def _drive(eng, reqs, plan):
+    """Submit reqs[i] before tick `plan[i]`, changing steps_per_sync to 4
+    after tick 6; record the state after each tick; run to the end."""
+    seen = []
+    for t in range(200):
+        for r, at in zip(reqs, plan):
+            if at == t:
+                eng.submit(Request(**r))
+        if t == 6:
+            eng.steps_per_sync = 4
+        if not (eng.pending or any(u is not None for u in eng.slot_uid)) \
+                and t > max(plan):
+            break
+        eng.step()
+        st = eng.state
+        seen.append([x.clone() for x in (st.ids, st.n_ids, st.steps,
+                                         st.cache_lens, st.next_embed,
+                                         st.img_embeds)])
+    return {c.uid: c for c in eng.completed}, seen
+
+
+@pytest.mark.parametrize("variant", ["text", "image_generation"])
+def test_graphed_plain_ticks_match_eager_ticks(jax_params, variant):
+    """Plain ticks replayed through the capture seam (the CPU stand-in,
+    which re-runs the closure on the static buffers) give the eager
+    engine's ids, steps, image embeddings and state after every tick:
+    across admissions between replays (which rebind state fields), rows
+    that finish mid-tick (budgets off the tick), and a key change (a
+    second steps_per_sync: one more eager tick, one more capture)."""
+    params = (jax_params if variant == "text"
+              else _forcing_image_start(jax_params))
+    model = from_jax_params(jax.tree.map(np.asarray, params), CFG,
+                            device="cpu")
+    reqs = _requests()
+    plan = [0, 0, 3, 5]
+    runs = []
+    for graphed in (False, True):
+        eng = ServeEngine(model, CFG, **dict(ENGINE, n_slots=3))
+        if graphed:
+            eng._capture = _rerun_capture(eng)
+        runs.append((eng,) + _drive(eng, reqs, plan))
+    (eager, ref, ref_seen), (eng, out, seen) = runs
+    assert eager.tick_counts["plain_graphed"] == 0
+    assert eng.tick_counts["captures"] == 2
+    assert 0 < eng.tick_counts["plain_graphed"] < eng.tick_counts["plain"]
+    assert eng.tick_counts["plain"] == eager.tick_counts["plain"]
+    assert sorted(map(str, out)) == ["0", "1", "2", "img"]
+    for uid, c in ref.items():
+        np.testing.assert_array_equal(out[uid].ids, c.ids)
+        assert out[uid].steps == c.steps
+        np.testing.assert_array_equal(out[uid].image_embeds, c.image_embeds)
+    if variant == "image_generation":
+        assert sum(c.image_embeds.shape[0] for c in ref.values()) > 0
+    assert len(seen) == len(ref_seen)
+    for a, b in zip(seen, ref_seen):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("variant", ["sampling", "spec"])
+def test_sampling_and_spec_ticks_stay_eager(jax_params, variant):
+    """An engine that samples, and a speculative engine's spec ticks, run
+    eagerly even where the engine can capture: nothing is replayed."""
+    model = from_jax_params(jax.tree.map(np.asarray, jax_params), CFG,
+                            device="cpu")
+    eng = ServeEngine(model, CFG, **ENGINE,
+                      **({"spec_k": 4} if variant == "spec" else {}))
+    eng._capture = _rerun_capture(eng)
+    eng.spec_overhead_frac = 0.0     # every decode tick runs the spec program
+    for r in _requests():
+        eng.submit(Request(**r, temperature=0.8 if variant == "sampling"
+                           else 0.0))
+    assert len(eng.run()) == 4
+    program = "plain" if variant == "sampling" else "spec"
+    assert eng.tick_counts[program] > 0
+    assert eng.tick_counts["plain_graphed"] == eng.tick_counts["captures"] \
+        == 0

@@ -164,6 +164,7 @@ def test_serve_spans_nest_carry_uids_and_match_the_counters(model):
     decodes = _by_name(spans, "serve.decode")
     assert len(decodes) == eng.tick_counts["plain"]
     assert all(d["attrs"]["program"] == "plain"
+               and d["attrs"]["graph"] is False    # a CPU engine
                and d["attrs"]["steps"] == 4
                and 1 <= d["attrs"]["rows"] <= 4 for d in decodes)
 
