@@ -243,8 +243,22 @@ Phases (any failure raises and the script exits nonzero):
      14d. `train()` under the process group (the sharded path), 2 layers
                of the 8B width, T 1024: 2 steps unbroken against 1 step, a
                save (~10 GB, in a temporary directory) and a resume.
+  5f. the DeepSeek-V3 block's serving path — MetaMorph on Kimi-VL-A3B's
+               decoder (benchmark/configs/mm-kimivl-a3b.json: latent
+               attention over a 576-wide latent cache, 64 routed experts,
+               top 6; seeded bf16 weights, SigLIP-SO400M) through
+               ServeEngine at 128 slots x 4,096, 40 text and 8 image
+               requests of the chat mix's lengths, served eagerly and with
+               the plain ticks replayed from CUDA graphs: equal ids, every
+               plain tick after its key's capture replayed, each step's
+               expert counts k per advancing row in every expert layer;
+               kernel G's and the grouped products' launches on the card in
+               the graphed run (the counters reset just before it); kernel
+               G against its plain version on the query and latent rows of
+               the path's first decode step at layer 3, with its device ms,
+               the plain ms and the bound of those rows' keys.
 The phases run in the order 1-3c, 10b, 11a, 4, 5, 5d, 10, 11b-11d, 12, 9a,
-5b, 9b-9e, 5e, 13, 5c, 8 (with 11d's `evaluate`), 14.
+5b, 9b-9e, 5e, 13, 5c, 8 (with 11d's `evaluate`), 14, 5f.
 
 The last two lines of stdout are the kernel summary JSON and
 {"ok": true, "device": {...}}; the whole script's wall time is printed
@@ -4471,6 +4485,222 @@ def phase_offload(torch, dev, train_row) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5f: the DeepSeek-V3 block's serving path (Kimi-VL-A3B's decoder)
+# ---------------------------------------------------------------------------
+
+MLA_MOE_CONFIG = os.path.join(ROOT, "benchmark", "configs",
+                              "mm-kimivl-a3b.json")
+
+
+def mla_moe_requests(np, image_embeds, n_text: int = 40, n_image: int = 8,
+                     seed: int = 5) -> list:
+    """The chat mix's shape: prompts lognormal about 1,020 tokens (sigma
+    0.8, 32-3,000), 16-48 new tokens; image requests carry one image at
+    position 10."""
+    rng = np.random.default_rng(seed)
+    lens = np.clip(np.exp(np.log(1020) + 0.8 * rng.standard_normal(
+        n_text + n_image)), 32, 3000).astype(int)
+    reqs = []
+    for i, t in enumerate(lens):
+        r = dict(prompt_ids=rng.integers(10, 128000, (t,)).astype(np.int32),
+                 max_new_tokens=int(rng.integers(16, 49)), uid=f"r{i}")
+        if i >= n_text:
+            r.update(image_embeds=image_embeds,
+                     image_positions=np.asarray([10]))
+        reqs.append(r)
+    return reqs
+
+
+def phase_mla_moe(torch, dev) -> dict:
+    """5f: MetaMorph on Kimi-VL-A3B's decoder (benchmark/configs/
+    mm-kimivl-a3b.json: latent attention, 64 routed experts, top 6; seeded
+    bf16 weights, SigLIP-SO400M) through ServeEngine at the chat cell's
+    engine (128 slots x 4,096, 8 steps a tick), text and image requests at
+    once, served eagerly and then with the plain ticks replayed from CUDA
+    graphs: equal ids, every plain tick after each key's capture replayed,
+    each step's expert counts summing to k per advancing row in every
+    expert layer. Kernel G's and the grouped products' launches are read
+    from the graphed run (`ran_on_card`; the counters reset just before
+    it), and kernel G is held against `mla_decode_plain` on the query and
+    latent rows of the eager run's first decode step at layer 3, with its
+    device ms (a CUDA graph of 20 calls over three copies of the rows, so
+    no launch finds its keys in L2), the plain version's ms and the
+    bound of the rows' keys."""
+    import numpy as np
+
+    from benchmark.weights_mla_moe import fill_model_
+    from metamorph_tpu_torch.config import MetaMorphConfig
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+    from metamorph_tpu_torch.models import mla_moe
+    from metamorph_tpu_torch.models.metamorph import MetaMorph, encode_images
+    from metamorph_tpu_torch.ops import mla_decode
+    from metamorph_tpu_torch.ops.moe import GROUPED_MM
+
+    with open(MLA_MOE_CONFIG) as f:
+        cfg_d = json.load(f)
+    cfg = MetaMorphConfig.from_dict(cfg_d)
+    lc = cfg.llama
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = MetaMorph(cfg, dtype=torch.bfloat16, device=dev)
+        fill_model_(model, cfg_d, 0)
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    log(f"5f: {lc.attention_kind} model built "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s = cfg.siglip.image_size
+    with torch.no_grad():
+        pixels = torch.randn((1, s, s, 3), generator=gen, device=dev)
+        image_embeds, _ = encode_images(model, cfg, pixels)
+    reqs = mla_moe_requests(np, image_embeds)
+
+    # kernel G's inputs and output at its first call of layer 3
+    want_layer, seen = 3, {}
+    kernel = mla_moe.mla_decode_attention
+
+    def noting(q, cache, lengths, layer, d_v, scale):
+        o = kernel(q, cache, lengths, layer, d_v, scale)
+        if layer == want_layer and not seen:
+            seen.update(q=q.clone(), rows=cache[layer].clone(),
+                        lengths=lengths.clone(), out=o.clone(), scale=scale)
+        return o
+
+    def serve(graphed: bool):
+        eng = ServeEngine(model, cfg, n_slots=128, max_cache_len=4096,
+                          max_new_tokens_cap=512, steps_per_sync=8, seed=0)
+        if not graphed:
+            eng._capture = None
+        mla_decode.MLA_DECODE.reset()
+        GROUPED_MM.reset()
+        for r in reqs:
+            eng.submit(Request(**r))
+        sums, n_moe = [], sum(map(lc.is_moe_layer, range(lc.num_layers)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            while eng.pending or any(u is not None for u in eng.slot_uid):
+                eng.step()
+                if eng.routes is not None:
+                    sums.append(eng.routes.sum(axis=-1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        done = {c.uid: c for c in eng.completed}
+        if sorted(done) != sorted(r["uid"] for r in reqs):
+            raise AssertionError(f"5f: served {sorted(done)}")
+        sums = np.concatenate(sums)          # [steps, L_moe]
+        if sums.shape[1] != n_moe or (sums % lc.num_experts_per_tok).any() \
+                or (sums != sums[:, :1]).any() or not sums.any():
+            raise AssertionError(f"5f: expert counts per step and layer "
+                                 f"are not k per advancing row: {sums}")
+        out = dict(wall_s=wall, ticks=dict(eng.tick_counts),
+                   new_tokens=sum(c.steps for c in done.values()),
+                   launches={k.symbol: ran_on_card(k, eng)
+                             for k in (mla_decode.MLA_DECODE, GROUPED_MM)},
+                   host_calls={k.symbol: k.launches
+                               for k in (mla_decode.MLA_DECODE, GROUPED_MM)},
+                   graphs=len(eng._graphs), routed_picks=int(sums.sum()))
+        del eng
+        free_memory(torch)
+        return done, out
+
+    mla_moe.mla_decode_attention = noting
+    try:
+        eager, eager_row = serve(False)
+    finally:
+        mla_moe.mla_decode_attention = kernel
+    graphed, graph_row = serve(True)
+    for uid, c in eager.items():
+        if not np.array_equal(c.ids, graphed[uid].ids):
+            raise AssertionError(f"5f: {uid}: graphed ids differ from eager")
+    t = graph_row["ticks"]
+    if eager_row["ticks"]["plain_graphed"] != 0 or t["captures"] != \
+            graph_row["graphs"] or t["plain_graphed"] != \
+            t["plain"] - graph_row["graphs"] or not t["plain_graphed"]:
+        raise AssertionError(f"5f: plain ticks not replayed: eager "
+                             f"{eager_row['ticks']}, graphed {t}")
+    for k, n in graph_row["launches"].items():
+        if n <= 0 or eager_row["launches"][k] <= 0:
+            raise AssertionError(f"5f: {k} did not run: {graph_row}")
+
+    q, rows, lengths, scale = (seen[k] for k in ("q", "rows", "lengths",
+                                                 "scale"))
+    d_v = lc.kv_lora_rank
+    t_plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t_plain[0].record()
+    want = mla_decode.mla_decode_plain(q.float(), rows.float(), lengths, d_v,
+                                       scale)
+    t_plain[1].record()
+    torch.cuda.synchronize()
+    err = float((seen["out"].float() - want).abs().max())
+    if not err <= DECODE_TOL:
+        raise AssertionError(f"5f: kernel G off its plain version by {err}")
+    copies = [rows[None]] + [rows[None].clone() for _ in range(2)]
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        mla_decode.mla_decode_attention(q, copies[turn[0] % 3], lengths, 0,
+                                        d_v, scale)
+
+    ms = cuda_graph_ms(call)
+    B, H, Dl = q.shape
+    keys = int(lengths.sum())
+    b = bound(2 * Dl * keys + 2 * B * H * (Dl + d_v),
+              2 * H * (Dl + d_v) * keys)
+    del copies, rows, want, seen
+    active = int((lengths > 1).sum())
+    row = dict(
+        model=lc.attention_kind, requests=len(reqs),
+        image_requests=sum("image_embeds" in r for r in reqs),
+        eager=eager_row, graphed=graph_row,
+        tok_per_s_graphed=graph_row["new_tokens"] / graph_row["wall_s"],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        kernel_g=dict(layer=want_layer, rows=B, rows_advancing=active,
+                      keys=keys, max_abs_err=err, ms=ms,
+                      plain_ms=t_plain[0].elapsed_time(t_plain[1]),
+                      **b, **rates(b, ms)),
+        ids_identical=True)
+    log("5f: MLA + MoE serving path", json.dumps(row))
+    del model
+    free_memory(torch)
+    return row
+
+
+def mla_moe_kernels(row: dict) -> list:
+    """The summary line's entries of phase 5f: kernel G (its launches on
+    the serving path, and its error, time, plain time and bound on the
+    path's own rows) and the grouped products' launches (PyTorch's
+    `torch._grouped_mm`, no hand-written kernel)."""
+    g = row["kernel_g"]
+
+    def launches(symbol):
+        return {"launches": row["graphed"]["launches"][symbol],
+                "launches_by_path": {"serve_mla_moe": row["graphed"][
+                    "launches"][symbol]}}
+
+    return [
+        {"name": "mla_decode_attn", "route": "triton",
+         "source": "metamorph_tpu_torch/ops/mla_decode.py",
+         "replaces": "none: the JAX package has no latent attention",
+         **launches("mla_decode_attn_kernel"),
+         "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+         "bound_by": g["bound_by"], "bound_share": g["bound_share"],
+         "library_ms": None,
+         "ms_method": "CUDA graph of 20 calls over three copies of the "
+                      "rows, replay timed by CUDA events",
+         "shape": {k: g[k] for k in ("rows", "rows_advancing", "keys")}},
+        {"name": "grouped_mm", "route": "library: torch._grouped_mm",
+         "source": "metamorph_tpu_torch/ops/moe.py",
+         "replaces": "none: the JAX package has no routed experts",
+         **launches("grouped_mm")},
+    ]
+
+
+# ---------------------------------------------------------------------------
 # phase 14: multi-GPU training, on one card
 # ---------------------------------------------------------------------------
 
@@ -5244,6 +5474,8 @@ def main() -> int:
     phase_recipe_small(torch, dev)
     free_memory(torch)
     multi_row = phase_multi_gpu(torch, dev, train_row, smi)
+    free_memory(torch)
+    mla_row = phase_mla_moe(torch, dev)
 
     p11 = {k: int8_row["launches"][k] + prefix_row["launches"][k]
            + tasks_bf16["launches"][k] for k in int8_row["launches"]}
@@ -5257,6 +5489,7 @@ def main() -> int:
                              recipe_row, weights_row, w8_rows, p11,
                              vis_row["decode"]["launches"],
                              offload_row["launches"], multi_row)
+    summary["kernels"].extend(mla_moe_kernels(mla_row))
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f}s")
     log(smi)
     log(json.dumps(summary))

@@ -51,6 +51,47 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     lora_r: int = 0
     lora_alpha: float = 16.0
+    # Multi-head latent attention (DeepSeek-V3's MLA), on when kv_lora_rank
+    # is positive: keys and values come from a kv_lora_rank-wide latent
+    # (normed) plus a shared qk_rope_head_dim-wide rotary key, and the
+    # cache holds those per token in place of per-head K/V. Query and key
+    # heads are qk_nope_head_dim + qk_rope_head_dim wide, values
+    # v_head_dim; the queries take no low-rank path (q_lora_rank null).
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # Routed experts (DeepSeekMoE), on when n_routed_experts is positive:
+    # layers from first_k_dense_replace on replace the intermediate_size
+    # FFN by num_experts_per_tok of n_routed_experts SwiGLU experts of
+    # width moe_intermediate_size, chosen on sigmoid scores plus a
+    # correction bias, weighted by the unbiased scores (normalised with
+    # norm_topk_prob) times routed_scaling_factor, plus one shared SwiGLU
+    # of width n_shared_experts * moe_intermediate_size.
+    n_routed_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+
+    @property
+    def attention_kind(self) -> str:
+        """"mla" (latent attention) or "gqa" (grouped-query)."""
+        return "mla" if self.kv_lora_rank > 0 else "gqa"
+
+    def require_gqa(self, what: str) -> None:
+        """Refuse `what`, an option that only the grouped-query decoder
+        has, for a latent-attention one."""
+        if self.attention_kind != "gqa":
+            raise ValueError(
+                f"{what} is not ported to attention kind "
+                f"{self.attention_kind!r} (multi-head latent attention with "
+                f"routed experts); it runs on the grouped-query decoder only")
+
+    def is_moe_layer(self, l: int) -> bool:
+        return self.n_routed_experts > 0 and l >= self.first_k_dense_replace
 
     @staticmethod
     def tiny(vocab_size: int = 128258) -> "LlamaConfig":
@@ -66,6 +107,13 @@ class LlamaConfig:
             rope_scaling=False,
             max_position_embeddings=512,
         )
+
+
+_LATENT_AND_EXPERT_KEYS = (
+    "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim",
+    "n_routed_experts", "num_experts_per_tok", "moe_intermediate_size",
+    "n_shared_experts", "first_k_dense_replace", "routed_scaling_factor",
+    "norm_topk_prob")
 
 
 @dataclass(frozen=True)
@@ -204,7 +252,16 @@ class MetaMorphConfig:
         )
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        """The tree as plain data. A grouped-query decoder leaves out the
+        latent-attention and expert keys, which then hold their defaults,
+        so that its JSON stays the one the JAX package reads."""
+        d = dataclasses.asdict(self)
+        if self.llama.attention_kind == "gqa" \
+                and not self.llama.n_routed_experts:
+            for f in dataclasses.fields(LlamaConfig):
+                if f.name in _LATENT_AND_EXPERT_KEYS:
+                    del d["llama"][f.name]
+        return d
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2)

@@ -61,6 +61,8 @@ from metamorph_tpu_torch.models import llama as llama_lib
 from metamorph_tpu_torch.models import metamorph as mm_lib
 from metamorph_tpu_torch.ops.decode_attention import (DECODE_ATTN,
                                                       DECODE_ATTN_INT8)
+from metamorph_tpu_torch.ops.mla_decode import MLA_DECODE
+from metamorph_tpu_torch.ops.moe import GROUPED_MM
 from metamorph_tpu_torch.ops.quant import W8_MATMUL
 from metamorph_tpu_torch.utils import trace
 
@@ -93,6 +95,13 @@ class ServeState:
     d_cache: Optional[Dict[str, torch.Tensor]]  # drafter KV cache
                                      #   [L, B, KV, S, Dh] (None: no drafter)
     d_len: torch.Tensor              # [B] int32 — ids the drafter ingested
+    route_counts: Optional[torch.Tensor] = None  # [n, L_moe, E] int32 —
+                                     #   expert picks of the active rows
+                                     #   per step of the last plain tick
+                                     #   (routed-expert models only)
+    route_log: Optional[torch.Tensor] = None  # [B, S, L_moe, k] uint8 —
+                                     #   each position's expert picks
+                                     #   (`ServeEngine.log_routes`)
 
 
 # Sampling looks at the top-K logits per row before the nucleus filter, as
@@ -179,10 +188,16 @@ def _decode_all(model, state: ServeState, cfg: MetaMorphConfig,
     """Advance every active slot by `n_steps` tokens (all B rows compute;
     inactive rows are frozen by the state machine)."""
     K = cfg.mm.num_image_tokens
-    for _ in range(n_steps):
+    for j in range(n_steps):
         pos = state.cache_lens[:, None]                      # [B,1] RoPE pos
+        # a routed-expert model counts its active rows' picks (and logs
+        # every row's, when asked to)
+        routing = (() if state.route_counts is None
+                   else (state.active, state.route_counts[j],
+                         state.route_log))
         h, _ = llama_lib.decode_step(model.llama, cfg.llama, state.next_embed,
-                                     pos, state.cache, state.cache_lens)
+                                     pos, state.cache, state.cache_lens,
+                                     *routing)
         state.cache_lens = state.cache_lens + state.active.to(torch.int32)
         _advance_rows(model, cfg, state, h[:, 0], state.active, K, eos_ids,
                       sampling, generator)
@@ -197,7 +212,8 @@ _PLAIN_TICK_FIELDS = ("cache_lens", "next_embed", "in_image", "img_count",
                       "max_new", "active", "ids_all", "n_all")
 
 # the kernels a plain tick launches, whose host calls a capture records
-_TICK_KERNELS = (DECODE_ATTN, DECODE_ATTN_INT8, W8_MATMUL)
+_TICK_KERNELS = (DECODE_ATTN, DECODE_ATTN_INT8, W8_MATMUL, MLA_DECODE,
+                 GROUPED_MM)
 
 
 def _cuda_graph(fn):
@@ -597,8 +613,9 @@ def _prefill_core(model, state: ServeState, cfg: MetaMorphConfig,
     # No key mask: prompts are right-padded, so causality alone keeps every
     # real position off the pad keys after it (the flash prefill contract).
     # Pad positions compute junk K/V that decode overwrites before reading.
+    log = {} if state.route_log is None else {"route_log": state.route_log}
     h_all, _ = llama_lib.prefill(model.llama, cfg.llama, prompt_embeds, pos,
-                                 None, state.cache, rows=slots)
+                                 None, state.cache, rows=slots, **log)
     if prompt_token_ids is not None:
         state.ids_all[slots, :T0b] = prompt_token_ids.to(torch.int32)
         n_all = prompt_lens
@@ -741,6 +758,9 @@ class Completed:
     steps: int = 0
     queue_s: float = 0.0             # submit -> admitted into a slot
     serve_s: float = 0.0             # admitted -> harvested (incl. prefill)
+    # [prompt + steps, L_moe, k] expert picks of each position, where the
+    # engine logs them (`ServeEngine.log_routes`)
+    routes: Optional[np.ndarray] = None
 
 
 class ServeEngine:
@@ -761,7 +781,15 @@ class ServeEngine:
     KV cache, `shared_prefix_ids` a prefix (a system prompt) whose KV is
     computed once here: requests then carry only their suffix ids (image
     positions relative to the suffix), and chunked fill and the embeds
-    transport are refused."""
+    transport are refused.
+
+    A latent-attention decoder with routed experts (`LlamaConfig.
+    attention_kind` "mla") serves through the same admission, plain tick
+    and image state over its latent cache; speculation, chunked fill, the
+    int8 cache and the shared prefix are refused here. Its plain ticks
+    count each step's expert picks of the active rows per expert layer;
+    the harvest that reads a tick's snapshot leaves them in `routes`
+    ([steps, L_moe, E] int32, None after a tick that decoded nothing)."""
 
     def __init__(self, model: mm_lib.MetaMorph, cfg: MetaMorphConfig,
                  n_slots: int = 8, max_cache_len: int = 2048,
@@ -774,6 +802,15 @@ class ServeEngine:
                  max_fills: int = 2, kv_int8: bool = False, spec_k: int = 0,
                  draft=None, shared_prefix_ids=None):
         self.model, self.cfg = model, cfg
+        lcfg = cfg.llama
+        for what, on in (("speculative decoding (spec_k, draft)",
+                          spec_k > 1 or draft is not None),
+                         ("chunked fill (fill_chunk)", fill_chunk > 0),
+                         ("the int8 KV cache (kv_int8)", kv_int8),
+                         ("the shared prefix (shared_prefix_ids)",
+                          shared_prefix_ids is not None)):
+            if on:
+                lcfg.require_gqa(what)
         self.n_slots, self.S = n_slots, max_cache_len
         self.device = model.llama.embed.device
         dev = self.device
@@ -832,7 +869,14 @@ class ServeEngine:
                 draft[1], n_slots, S_alloc, dtype=draft[0].embed.dtype,
                 device=dev) if draft is not None else None),
             d_len=zeros(n_slots),
+            route_counts=(zeros(1 << (self.steps_per_sync.bit_length() - 1),
+                                sum(map(lcfg.is_moe_layer,
+                                        range(lcfg.num_layers))),
+                                lcfg.n_routed_experts)
+                          if lcfg.n_routed_experts else None),
         )
+        self.routes = None
+        self._routes_n = 0
         self._prefix = None
         if shared_prefix_ids is not None:
             self._prefix = self._build_prefix(shared_prefix_ids, kv_int8,
@@ -887,6 +931,7 @@ class ServeEngine:
                                        pin_memory=True)
                            if dev.type == "cuda" else None)
         self._snap = None
+        self._routes_host = None
         # streaming: on_token(uid, new_ids) whenever a tick's snapshot shows
         # a row recorded new tokens (one sync chunk behind generation)
         self.on_token = on_token
@@ -895,7 +940,24 @@ class ServeEngine:
         self.slot_uid: List[Any] = [None] * n_slots
         self.slot_t_admit: List[float] = [0.0] * n_slots
         self.slot_queue_s: List[float] = [0.0] * n_slots
+        self.slot_prompt_len: List[int] = [0] * n_slots
         self.completed: List[Completed] = []
+
+    def log_routes(self) -> None:
+        """Keep every position's expert picks (a routed-expert model):
+        admissions and decode steps write them into a [slots, S, L_moe, k]
+        uint8 log on the device, and each finished request carries its
+        own (`Completed.routes`, read at harvest). Call before the first
+        tick: a captured tick writes the log only if it existed then."""
+        lc = self.cfg.llama
+        if self.state.route_counts is None:
+            raise ValueError("only a routed-expert model has picks to log")
+        if self._graphs or any(u is not None for u in self.slot_uid):
+            raise ValueError("log_routes() goes before the first request")
+        self.state.route_log = torch.zeros(
+            (self.n_slots, self.state.cache["latent"].shape[2],
+             self.state.route_counts.shape[1], lc.num_experts_per_tok),
+            dtype=torch.uint8, device=self.device)
 
     @torch.no_grad()
     def _build_prefix(self, shared_prefix_ids, kv_int8: bool,
@@ -1070,19 +1132,30 @@ class ServeEngine:
             self.slot_uid[slot] = req.uid
             self.slot_t_admit[slot] = now
             self.slot_queue_s[slot] = now - req.t_submit
+            self.slot_prompt_len[slot] = req.prompt_len
             self._streamed[slot] = 0
             self._row_rate[slot] = -1.0  # new request: re-probe its spec rate
             self._row_obs[slot] = 0
 
     def _fetch_snapshot(self) -> None:
         snap = _snapshot(self.state)
+        n, self._routes_n = self._routes_n, 0
+        routes = self.state.route_counts[:n] if n else None
         if self._snap_host is None:
-            self._snap = (snap.clone(), None)
+            self._snap = (snap.clone(), None,
+                          None if routes is None else routes.clone())
             return
         self._snap_host.copy_(snap, non_blocking=True)
+        if routes is not None:
+            if self._routes_host is None:
+                self._routes_host = torch.empty(
+                    self.state.route_counts.shape, dtype=torch.int32,
+                    pin_memory=True)
+            self._routes_host[:n].copy_(routes, non_blocking=True)
+            routes = self._routes_host[:n]
         ev = torch.cuda.Event()
         ev.record()
-        self._snap = (self._snap_host, ev)
+        self._snap = (self._snap_host, ev, routes)
 
     def _harvest(self) -> List[Any]:
         """Move finished rows (occupied but no longer active) to completed,
@@ -1092,13 +1165,16 @@ class ServeEngine:
         emitted images. Filling slots still hold the previous request's
         lanes until their admitting chunk and are skipped. Returns the
         finished requests' uids."""
+        self.routes = None
         if self._snap is None:
             return []
-        host, ev = self._snap
+        host, ev, routes = self._snap
         if ev is not None:
             with trace.span("serve.harvest.wait"):
                 ev.synchronize()
         snap = host.numpy().copy()
+        if routes is not None:
+            self.routes = routes.numpy().copy()
         self._snap = None
         active, n_ids, n_img, steps = snap[:, 0], snap[:, 1], snap[:, 2], \
             snap[:, 3]
@@ -1141,15 +1217,21 @@ class ServeEngine:
         need_img = [s for s in fin if n_img[s]]
         img_rows = (self.state.img_embeds[need_img].cpu().numpy()
                     if need_img else None)
+        # the finished rows' logged picks in one copy (the slots' next
+        # requests overwrite the log)
+        n_log = [self.slot_prompt_len[s] + int(steps[s]) for s in fin]
+        logs = (None if self.state.route_log is None else
+                self.state.route_log[fin, :max(n_log)].cpu().numpy())
         now = time.perf_counter()
-        for s in fin:
+        for i, s in enumerate(fin):
             emb = (img_rows[need_img.index(s)][:n_img[s]]
                    if n_img[s] else np.zeros((0, Dv), np.float32))
+            routes = None if logs is None else logs[i, :n_log[i]]
             self.completed.append(Completed(
                 uid=self.slot_uid[s], ids=ids_all[s][:n_ids[s]],
                 image_embeds=emb, steps=int(steps[s]),
                 queue_s=self.slot_queue_s[s],
-                serve_s=now - self.slot_t_admit[s]))
+                serve_s=now - self.slot_t_admit[s], routes=routes))
             self.slot_uid[s] = None
         return uids
 
@@ -1389,6 +1471,9 @@ class ServeEngine:
         def tick():
             _decode_all(self.model, self.state, self.cfg, self._eos_ids, n,
                         self._sampling, self.generator)
+
+        if self.state.route_counts is not None:
+            self._routes_n = n
 
         if self._capture is None or self._sampling:
             tick()

@@ -102,8 +102,19 @@ class Llama(nn.Module):
         self.cfg = cfg
         kw = dict(dtype=dtype, device=device)
         self.embed = _param(cfg.vocab_size, cfg.hidden_size, **kw)
-        self.layers = nn.ModuleList(LlamaLayer(cfg, dtype, device)
-                                    for _ in range(cfg.num_layers))
+        if cfg.attention_kind == "mla":
+            # the DeepSeek-V3 block: latent attention, routed experts
+            from metamorph_tpu_torch.models.mla_moe import MlaMoeLayer
+            if cfg.lora_r > 0:
+                cfg.require_gqa("LoRA (lora_r > 0)")
+            self.layers = nn.ModuleList(MlaMoeLayer(cfg, l, dtype, device)
+                                        for l in range(cfg.num_layers))
+        elif cfg.n_routed_experts:
+            raise ValueError("routed experts come with latent attention "
+                             "(kv_lora_rank > 0) only")
+        else:
+            self.layers = nn.ModuleList(LlamaLayer(cfg, dtype, device)
+                                        for _ in range(cfg.num_layers))
         self.final_norm = _param(cfg.hidden_size, **kw)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else _param(cfg.hidden_size, cfg.vocab_size, **kw))
@@ -352,6 +363,11 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
     scales "k_scale"/"v_scale" [L, B, KV, S] (`ops/quant.quantize_kv` is
     the write-side transform); downstream code detects the mode by the
     presence of "k_scale"."""
+    if cfg.attention_kind == "mla":
+        if quantized:
+            cfg.require_gqa("the int8 KV cache (kv_int8)")
+        from metamorph_tpu_torch.models import mla_moe
+        return mla_moe.init_latent_cache(cfg, batch, max_len, dtype, device)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     if quantized:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -389,11 +405,18 @@ def _put(cache: Dict[str, torch.Tensor], l: int, index, k, v, ks, vs) -> None:
 
 def prefill(model: Llama, cfg: LlamaConfig, inputs_embeds, positions,
             attn_mask, cache: Dict[str, torch.Tensor],
-            rows: Optional[torch.Tensor] = None):
+            rows: Optional[torch.Tensor] = None,
+            route_log: Optional[torch.Tensor] = None):
     """Run the prompt through the model and write each layer's K/V into
     cache[l, rows, :, :T] IN PLACE as the layer finishes (no stacked copy of
     all layers; quantized entries for an int8 cache). `rows` [B] selects
-    the cache rows (default 0..B-1). Returns (hidden [B,T,D], cache)."""
+    the cache rows (default 0..B-1). Returns (hidden [B,T,D], cache).
+    A latent-attention decoder writes its latent cache instead, and its
+    expert picks to `route_log` (`mla_moe.prefill`)."""
+    if cfg.attention_kind == "mla":
+        from metamorph_tpu_torch.models import mla_moe
+        return mla_moe.prefill(model, cfg, inputs_embeds, positions,
+                               attn_mask, cache, rows, route_log)
     T = inputs_embeds.shape[1]
     dev = cache["k"].device
     if rows is None:
@@ -412,13 +435,22 @@ def prefill(model: Llama, cfg: LlamaConfig, inputs_embeds, positions,
 
 def decode_step(model: Llama, cfg: LlamaConfig, x: torch.Tensor,
                 pos: torch.Tensor, cache: Dict[str, torch.Tensor],
-                cache_idx: torch.Tensor):
+                cache_idx: torch.Tensor, active: Optional[torch.Tensor] = None,
+                counts: Optional[torch.Tensor] = None,
+                route_log: Optional[torch.Tensor] = None):
     """One-token step with per-row (ragged) cache positions.
     x [B,1,D]; pos [B,1] RoPE positions; cache_idx [B] int — tokens already
     in each row's cache (this step writes there); each row attends to its
     keys [0, cache_idx + 1). Updates the cache in place and returns
     (hidden [B,1,D], cache). (The JAX function's `starts`, for left-padded
-    batched decode, comes with that decode.)"""
+    batched decode, comes with that decode.) A latent-attention decoder
+    runs `mla_moe.decode_step`, which with `counts` [L_moe, E] also
+    counts the expert picks of the `active` [B] rows, and with
+    `route_log` logs each row's picks."""
+    if cfg.attention_kind == "mla":
+        from metamorph_tpu_torch.models import mla_moe
+        return mla_moe.decode_step(model, cfg, x, pos, cache, cache_idx,
+                                   active, counts, route_log)
     if not (torch.is_tensor(cache_idx) and cache_idx.dim() == 1):
         raise TypeError("cache_idx must be a [B] tensor (ragged rows)")
     B = x.shape[0]

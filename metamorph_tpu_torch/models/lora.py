@@ -38,6 +38,7 @@ def add_lora(llama: Llama, r: int, seed: int = 0) -> Llama:
     with `seed` (the numbers differ from `jax.random`'s), B = 0, so the
     model computes what it did. The scale alpha / r comes from the config
     (`lora_r`, `lora_alpha`) when the factors are used."""
+    llama.cfg.require_gqa("LoRA (add_lora)")
     device = llama.embed.device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

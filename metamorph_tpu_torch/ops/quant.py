@@ -290,6 +290,7 @@ def quantize_llama_decode(llama, consume: bool = False):
     from metamorph_tpu_torch.models.llama import Llama, LlamaLayer
 
     cfg = llama.cfg
+    cfg.require_gqa("int8 weights (quantize_llama_decode)")
     dtype = llama.embed.dtype
     out = Llama(cfg, dtype=dtype, device="meta")
     out.embed = llama.embed

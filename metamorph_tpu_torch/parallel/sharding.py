@@ -65,6 +65,7 @@ def apply_tensor_parallel(model: nn.Module, mesh) -> Dict[str, int]:
     if t == 1:
         return {}
     llama = model.llama
+    llama.cfg.require_gqa("tensor parallelism")
     if not _layer_splits(llama.cfg, t):
         return {}
     group = mesh.get_group("tensor")

@@ -67,6 +67,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step. The metrics are those of the forward before the
     update."""
+    cfg.llama.require_gqa("train_step")
     model = state["params"]
     _zero_grads(model)
     with trace.span("train.forward", index=0):
@@ -86,6 +87,7 @@ def accum_train_step(state: TrainState, batches: Dict[str, torch.Tensor],
                      ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Gradient accumulation: batches/pixels carry a leading microbatch
     axis; gradients and metrics are averaged over the microbatches."""
+    cfg.llama.require_gqa("train_step")
     model = state["params"]
     n = pixels.shape[0]
     _zero_grads(model)

@@ -135,6 +135,7 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
     torchrun's environment unless one exists; with a process group the
     step is sharded over `cfg.mesh`, else it runs on one device (and
     `cfg.mesh` must cover one)."""
+    cfg.llama.require_gqa("train()")
     _check_supported(args)
     device = rank_device(device)
     if multihost:

@@ -1,8 +1,10 @@
 """PyTorch port, CUDA kernels on the card: each kernel against its plain
 PyTorch version (fp32 math and fp32 output from the same bf16 inputs), the
 launch counters,
-and the wrappers' input checks; the serving engine's plain ticks replayed
-from CUDA graphs against its eager ticks; the visualizer's render on the card
+and the wrappers' input checks; kernel G (Triton) and the routed experts'
+grouped products against their plain forms and the reference; the serving
+engine's plain ticks replayed from CUDA graphs against its eager ticks
+(dense and on the DeepSeek-V3 block); the visualizer's render on the card
 against the CPU, and its loader's device rule; the offloaded AdamW
 (pinned moments, bitwise the on-card update, a failed pin raising).
 Skips where there is no CUDA device.
@@ -1429,3 +1431,165 @@ def test_rank_device_names_the_card(dev, monkeypatch):
     monkeypatch.setenv("LOCAL_RANK", "0")
     assert rank_device("cuda") == torch.device("cuda", 0)
     assert rank_device("cpu") == torch.device("cpu")
+
+
+# -- kernel G and the routed experts (the DeepSeek-V3 block) --------------
+
+@pytest.mark.parametrize("B,lens", [(3, [1, 17, 4096]), (64, None)],
+                         ids=["ragged", "many_rows"])
+def test_mla_decode_kernel_matches_plain(dev, B, lens):
+    """Kernel G at the published widths (16 heads, latent 512 + rope 64)
+    on ragged rows, layer 1 of a two-layer cache: its splits, their merge
+    and a row of one key; bitwise the same on a second launch (the
+    arrival counters are left at zero). 2e-2 on the bf16 output: its
+    rounding plus the bf16 probability tile of the PV product."""
+    from metamorph_tpu_torch.ops import mla_decode as mg
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    S, H = 4096, 16
+    cache = _randn(gen, dev, 2, B, S, 576)
+    q = _randn(gen, dev, B, H, 576)
+    if lens is None:
+        lens = torch.randint(1, S + 1, (B,), generator=gen,
+                             device=dev).tolist()
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    scale = 192 ** -0.5
+    n0 = mg.MLA_DECODE.launches
+    o = mg.mla_decode_attention(q, cache, lengths, 1, 512, scale)
+    again = mg.mla_decode_attention(q, cache, lengths, 1, 512, scale)
+    torch.cuda.synchronize()
+    assert mg.MLA_DECODE.launches == n0 + 2
+    want = mg.mla_decode_plain(q.float(), cache[1].float(), lengths, 512,
+                               scale)
+    assert (o.float() - want).abs().max().item() <= O_TOL
+    assert torch.equal(o, again)
+
+
+def _mla_moe_cfg(**over):
+    llama = dict(vocab_size=128258, hidden_size=256, intermediate_size=512,
+                 num_layers=3, num_heads=4, num_kv_heads=4, head_dim=96,
+                 rope_theta=800000.0, rms_norm_eps=1e-5,
+                 max_position_embeddings=4096, rope_scaling=False,
+                 tie_word_embeddings=False, kv_lora_rank=128,
+                 qk_nope_head_dim=32, qk_rope_head_dim=64, v_head_dim=32,
+                 n_routed_experts=8, num_experts_per_tok=2,
+                 moe_intermediate_size=64, n_shared_experts=1,
+                 first_k_dense_replace=1, routed_scaling_factor=2.446,
+                 norm_topk_prob=True)
+    llama.update(over)
+    return {"llama": llama,
+            "siglip": dict(image_size=28, patch_size=14, hidden_size=32,
+                           intermediate_size=64, num_layers=2, num_heads=4,
+                           layer_norm_eps=1e-6, select_layer=-1),
+            "mm": dict(projector_type="mlp2x_gelu", vision_head_type="mlp",
+                       num_image_tokens=4)}
+
+
+def test_graphed_mla_moe_ticks_equal_eager_ticks_on_card(dev):
+    """A small MetaMorph on the DeepSeek-V3 block served twice on the card
+    through the same admissions: plain ticks replayed from CUDA graphs
+    (kernel G, the grouped products, the routing counters) against eager
+    ones hold equal ids, lengths and next_embed after every tick, equal
+    expert counts, and finish with equal requests."""
+    import numpy as np
+
+    from benchmark.weights_mla_moe import fill_model_
+    from metamorph_tpu_torch.config import MetaMorphConfig
+    from metamorph_tpu_torch.inference.serve import Request, ServeEngine
+    from metamorph_tpu_torch.models.metamorph import MetaMorph
+
+    cfg_d = _mla_moe_cfg()
+    cfg = MetaMorphConfig.from_dict(cfg_d)
+    with torch.no_grad():
+        model = MetaMorph(cfg, dtype=torch.bfloat16, device=dev)
+        fill_model_(model, cfg_d, 5)
+    model.requires_grad_(False)
+    rng = np.random.default_rng(2)
+    reqs = [dict(prompt_ids=rng.integers(10, 128000, (t,)).astype(np.int32),
+                 max_new_tokens=b, uid=i)
+            for i, (t, b) in enumerate([(12, 21), (40, 14), (7, 30),
+                                        (60, 11), (25, 17)])]
+    plan = [0, 0, 2, 3, 6]
+    runs = []
+    for graphed in (False, True):
+        eng = ServeEngine(model, cfg, n_slots=4, max_cache_len=256,
+                          max_new_tokens_cap=32, max_images=4,
+                          prefill_buckets=(16, 32, 64), steps_per_sync=4)
+        eng.log_routes()
+        if not graphed:
+            eng._capture = None
+        seen, routes = [], []
+        with torch.no_grad():
+            for t in range(100):
+                for r, at in zip(reqs, plan):
+                    if at == t:
+                        eng.submit(Request(**r))
+                if t > max(plan) and not (eng.pending or any(
+                        u is not None for u in eng.slot_uid)):
+                    break
+                eng.step()
+                st = eng.state
+                seen.append([x.clone() for x in (
+                    st.ids, st.cache_lens, st.next_embed)])
+                routes.append(eng.routes)
+        runs.append((eng, {c.uid: c for c in eng.completed}, seen, routes))
+    (eager, ref, ref_seen, ref_routes), (eng, out, seen, routes) = runs
+    assert eager.tick_counts["plain_graphed"] == 0
+    assert eng.tick_counts["captures"] == 1
+    assert eng.tick_counts["plain_graphed"] == eng.tick_counts["plain"] - 1
+    for uid, c in ref.items():
+        np.testing.assert_array_equal(out[uid].ids, c.ids)
+        np.testing.assert_array_equal(out[uid].routes, c.routes)
+    for a, b in zip(seen, ref_seen):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert any(r is not None for r in routes)
+    for a, b in zip(routes, ref_routes):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    launches = dict(eng.graph_launches())
+    assert launches["mla_decode_attn_kernel"][1] > 0
+    assert launches["grouped_mm"][1] > 0
+
+
+def test_routed_layer_on_card_matches_reference(dev):
+    """The routed layer at Kimi-VL-A3B's widths (D 2,048, 64 experts of
+    1,408, top 6, a shared expert of 2,816) in bf16 on the card against
+    the reference's float32 loop over experts on the same weights and
+    inputs. The router sees the same float32 logits on both sides, so the
+    picks agree; 3e-2 of the output's largest entry covers the bf16
+    products (three roundings of relative 2**-9 through a SwiGLU)."""
+    from benchmark.reference import mla_moe as ref
+    from benchmark.reference.precision import fp32_only
+    from benchmark.weights_mla_moe import weights
+    from metamorph_tpu_torch.config import LlamaConfig
+    from metamorph_tpu_torch.models import mla_moe
+    from metamorph_tpu_torch.ops import moe
+
+    fp32_only()
+    over = dict(hidden_size=2048, n_routed_experts=64, num_experts_per_tok=6,
+                moe_intermediate_size=1408, n_shared_experts=2,
+                num_layers=2, first_k_dense_replace=1)
+    cfg_d = _mla_moe_cfg(**over)
+    lc = LlamaConfig(**cfg_d["llama"])
+    with torch.no_grad():
+        layer = mla_moe.MlaMoeLayer(lc, 1, torch.bfloat16, dev)
+    W = {k[len("llama.layers.1."):]: v for k, v in
+         weights(cfg_d, 3, dev, torch.bfloat16).items()
+         if k.startswith("llama.layers.1.")}
+    with torch.no_grad():
+        for k, v in W.items():
+            getattr(layer, k).copy_(v)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    h = _randn(gen, dev, 4, 16, 2048)
+    n0 = moe.GROUPED_MM.launches
+    with torch.no_grad():
+        got = mla_moe._ffn(layer, lc, h).float()
+    torch.cuda.synchronize()
+    assert moe.GROUPED_MM.launches == n0 + 3
+    want = ref.moe(h.float().reshape(-1, 2048),
+                   {k: v.float() for k, v in W.items()},
+                   cfg_d["llama"]).view(4, 16, 2048)
+    err = (got - want).abs().max() / want.abs().max()
+    assert err.item() <= 3e-2

@@ -22,7 +22,8 @@ from metamorph_tpu.models import llama as JL
 from metamorph_tpu.models import metamorph as JM
 from metamorph_tpu.models import siglip as JS
 from metamorph_tpu.multimodal.packing import batch_to_arrays, pack_sequences
-from metamorph_tpu_torch.config import (LlamaConfig, MetaMorphConfig,
+from metamorph_tpu_torch.config import (_LATENT_AND_EXPERT_KEYS,
+                                        LlamaConfig, MetaMorphConfig,
                                         MultimodalConfig, SiglipConfig,
                                         resolve_dtype)
 from metamorph_tpu_torch.constants import IMAGE_TOKEN_INDEX
@@ -54,16 +55,23 @@ def _t(x):
 
 def test_config_copy_matches_jax_package():
     """Same fields and defaults, so a config JSON round-trips across; the
-    dtype names map to torch dtypes."""
+    dtype names map to torch dtypes. The port's decoder config has the
+    latent-attention and expert fields besides (a block the JAX package
+    lacks), which a grouped-query config leaves out of its JSON."""
     assert resolve_dtype("bfloat16") is torch.bfloat16
     assert resolve_dtype("float32") is torch.float32
     d = JConfig().to_dict()
     assert MetaMorphConfig.from_dict(d) == MetaMorphConfig()
     assert MetaMorphConfig.from_json(CFG.to_json()) == CFG
+    assert JConfig.from_json(MetaMorphConfig().to_json()) == JConfig()
     for mine, theirs in ((LlamaConfig(), JLlamaConfig()),
                          (SiglipConfig(), JSiglipConfig()),
                          (MultimodalConfig(), JMM())):
-        assert mine.__dict__ == theirs.__dict__
+        extra = set(mine.__dict__) - set(theirs.__dict__)
+        assert extra == (set(_LATENT_AND_EXPERT_KEYS)
+                         if isinstance(mine, LlamaConfig) else set())
+        assert {k: v for k, v in mine.__dict__.items()
+                if k not in extra} == theirs.__dict__
 
 
 def test_llama_forward_and_lm_head_match_jax(pair):
