@@ -61,7 +61,13 @@ Phases (any failure raises and the script exits nonzero):
   5b. train main path — configs/stage2_finetune.json (LLaMA-3.1-8B +
                SO400M, dual loss) cut to one card: 4 train steps on one packed
                4096-token row with a prompt and an answer image; step time,
-               tokens/s, peak memory; kernels A, C and D must run;
+               tokens/s, peak memory; kernels A, C, D and H must run; then
+               kernel H's update bitwise the plain chain's on the step's
+               embedding, an MLP weight and a norm weight (clones, its own
+               norm, within 1e-5 of `global_norm`), and
+               kernel H (AdamW, `csrc/adamw.cu`) timed on the step's state
+               (the whole update, its norm and update passes apart) against
+               the plain chain (`AdamW._update_plain`) and its bytes bound;
   5c. train() — the trainer loop at the 4b width: logging, saves, pruning and
                a resume;
   8. the recipe's data path — a conversation JSONL written by the phase
@@ -73,7 +79,8 @@ Phases (any failure raises and the script exits nonzero):
      8a. at 5b's width and cut (T=4096, 4 steps): host ms per batch of
                dataset + collate + pack, the native and the Python packer
                per row, each step's loss and AR-token count against the
-               batch the iterator gives, the wait on the prefetch queue,
+               batch the iterator gives (`train()` loads it in its worker
+               process), the wait on the prefetch queue,
                real tokens/s, peak memory (no checkpoint: the 8B state is
                ~49 GB); then the same batches collated beforehand, so that
                the loader's host share of the step shows; the native
@@ -195,8 +202,8 @@ Phases (any failure raises and the script exits nonzero):
                the trainable mask) and the host <-> card copy rates, then
                3 offloaded steps against 3 with the moments on the card
                from the same start: losses and every parameter bitwise
-               equal (checksums), the moments pinned, kernels A, C and D
-               launched; step s and device peak beside 5b's. A host that
+               equal (checksums), the moments pinned, kernels A, C, D and
+               H's update (one launch per staged chunk) launched; step s and device peak beside 5b's. A host that
                cannot pin the moments cuts the LLaMA's layers (logged);
   13. the visualizer's training path:
      13a. a 4-level UNet at small widths, the tiny VAE and a 2-layer mlp
@@ -227,7 +234,8 @@ Phases (any failure raises and the script exits nonzero):
                held to 5b's first two (bitwise, or losses within 1e-3 and
                each tensor's update within 2e-2 of its max |update|; the
                log says which); step s, peak memory, NCCL's kernels and
-               the busy share from the profiler, kernels A/C/D launched;
+               the busy share from the profiler, kernels A/C/D and H
+               launched;
      14b. ring attention at configs/longctx_sp.json's layout (T 16,384
                in 8 chunks of 2,048, H 32, KV 8, Dh 128, bf16): each ring
                position in turn through `_ring_body`, forward and backward,
@@ -1842,6 +1850,7 @@ def phase_train_main(torch, dev):
     from metamorph_tpu_torch.config import MetaMorphConfig
     from metamorph_tpu_torch.convert import init_params
     from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.ops import adamw as adamw_kernel
     from metamorph_tpu_torch.ops import flash_attention as fa
     from metamorph_tpu_torch.train import train_step as TS
     from metamorph_tpu_torch.train.optimizer import make_optimizer
@@ -1882,7 +1891,8 @@ def phase_train_main(torch, dev):
                    for n, p in model.named_parameters()}
     step2 = {}
 
-    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
+               *adamw_kernel.KERNELS)
     for kern in kernels:
         kern.launches = 0
     steps, times = [], []
@@ -1908,6 +1918,7 @@ def phase_train_main(torch, dev):
                      for n, p in model.named_parameters()}
     launches = {k.symbol: k.launches for k in kernels}
     del before, sampled
+    opt_counts = dict(tx.counts)
 
     for i, m in enumerate(steps):
         if not all(map(lambda x: x == x and abs(x) != float("inf"),
@@ -1926,6 +1937,15 @@ def phase_train_main(torch, dev):
         if kern.launches <= 0:
             raise AssertionError(f"kernel {kern.symbol} was not launched by "
                                  f"the train main path")
+    if opt_counts["plain_elements"] or not opt_counts["kernel_h_elements"]:
+        raise AssertionError(f"AdamW on the card left kernel H: "
+                             f"{opt_counts}")
+    check = adamw_check(torch, model, state, tx)
+    adamw_row = adamw_timing(torch, model, state, tx)
+    adamw_row.update(ran_on_card={k.symbol: launches[k.symbol]
+                                  for k in adamw_kernel.KERNELS},
+                     counts=opt_counts, check=check)
+    log("train main: kernel H", json.dumps(adamw_row))
 
     lc = cfg.llama
     n_dense = sum(p.numel() for p in lm.parameters()) - lm.embed.numel()
@@ -1937,7 +1957,8 @@ def phase_train_main(torch, dev):
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                losses=[m["loss"] for m in steps],
                grad_norms=[m["grad_norm"] for m in steps],
-               launches=launches, llm_dense_params=n_dense,
+               launches=launches, adamw=adamw_row,
+               llm_dense_params=n_dense,
                model_flop_share=(6 * n_dense * T + attn_flops) / step_s
                / (PEAK_BF16_TFLOPS * 1e12))
     log("train main path", json.dumps(row))
@@ -1945,6 +1966,125 @@ def phase_train_main(torch, dev):
     row["step2"] = step2
     del state, model, batch, pixels
     return row
+
+
+ADAMW_NORM_RTOL = 1e-5   # kernel H's norm against `global_norm` (fp32 sums)
+
+
+def adamw_check(torch, model, state, tx) -> dict:
+    """Kernel H against the plain chain on 5b's own tensors after its
+    steps: the embedding, an MLP weight and a 1-D norm weight, at their
+    shapes and dtypes, with their gradients, moments and group lr at the
+    state's count. Clones take kernel H's update with the norm of its own
+    pass over every trainable gradient, other clones the plain chain
+    (`AdamW.plain_chunk_` on each chunk) with that norm: p, mu and nu
+    must be bitwise equal, and the norm within ADAMW_NORM_RTOL of the
+    plain `global_norm`. Changes nothing of the model or the state."""
+    from metamorph_tpu_torch.ops import adamw as adamw_kernel
+    from metamorph_tpu_torch.train.optimizer import _chunks, local
+
+    params = tx.trainable(model)
+    st = state["opt_state"]
+    count, cfg = st["count"], tx.cfg
+    dev = local(params[0][1]).device
+    items, groups = tx.table_items(params, st)
+    table = adamw_kernel.build_table(items, len(groups))
+    norm = tx._norm(adamw_kernel.group_sums(
+        table, adamw_kernel.upload(table, dev)), groups)
+    plain_norm = tx.global_norm(model)
+    del items, table
+    norm_rel_err = abs(norm.item() - plain_norm.item()) / plain_norm.item()
+    sc = adamw_kernel.scalars(count, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps,
+                              cfg.weight_decay, cfg.grad_clip_norm)
+    named = dict(params)
+    picks = {"embedding": next(n for n in named if n.endswith("embed")),
+             "mlp": next(n for n in named if n.endswith("w_down")),
+             "norm": next(n for n, p in named.items() if p.dim() == 1)}
+    tensors = {}
+    for role, name in picks.items():
+        p = local(named[name])
+        orig = (p, local(p.grad).contiguous(), st["mu"][name],
+                st["nu"][name])
+        lr = tx._lr(name, count)
+        kern = [t.detach().clone() for t in orig]
+        one = adamw_kernel.build_table([(*kern, lr, 0)], 1)
+        adamw_kernel.update(one, adamw_kernel.upload(one, dev), sc, norm)
+        plain = [t.detach().clone() for t in orig]
+        for chunk in zip(*map(_chunks, plain)):
+            tx.plain_chunk_(*chunk, lr, count, norm)
+        torch.cuda.synchronize()
+        differing = {k: int((a != b).sum()) for k, a, b in zip(
+            ("p", "g", "mu", "nu"), kern, plain) if k != "g"}
+        changed = {k: int((a != b).sum()) for k, a, b in zip(
+            ("p", "g", "mu", "nu"), kern, orig) if k != "g"}
+        tensors[role] = dict(name=name, shape=list(p.shape),
+                             dtype=str(p.dtype).replace("torch.", ""),
+                             lr=lr, differing=differing, changed=changed)
+        del kern, plain, orig, one
+    free_memory(torch)
+    row = dict(count=count, norm=norm.item(), plain_norm=plain_norm.item(),
+               norm_rel_err=norm_rel_err,
+               clip_engaged=norm.item() >= cfg.grad_clip_norm,
+               tensors=tensors,
+               bitwise_equal=not any(sum(t["differing"].values())
+                                     for t in tensors.values()))
+    log("train main: kernel H against the plain chain", json.dumps(row))
+    if not row["bitwise_equal"]:
+        raise AssertionError(f"kernel H's update differs from the plain "
+                             f"chain's on 5b's tensors: {tensors}")
+    # p may keep its bf16 value at a warmup lr; the moments always move
+    if not all(t["changed"]["mu"] and t["changed"]["nu"]
+               for t in tensors.values()):
+        raise AssertionError(f"kernel H's update left moments unchanged: "
+                             f"{tensors}")
+    if not norm_rel_err <= ADAMW_NORM_RTOL:
+        raise AssertionError(f"kernel H's norm {norm.item()} is "
+                             f"{norm_rel_err:.2e} off the plain "
+                             f"global_norm {plain_norm.item()}")
+    return row
+
+
+def adamw_timing(torch, model, state, tx) -> dict:
+    """Kernel H at 5b's trainable parameters (~8 B, the `ministral8b-sft`
+    cell's 8.02 B within 1 %), on the state 5b's steps left: the whole
+    update (table, norm pass, update pass; `ms`), the norm pass and the
+    update pass alone on one table, and the plain chain on the same state,
+    each from calls queued between CUDA events. Bound: the gradient read
+    once by the norm pass, g, p, mu and nu read and p, mu and nu written
+    once by the update pass (16 bytes a bf16 parameter), at 3.35 TB/s.
+    Each call is a real update: run after 5b's checks."""
+    from metamorph_tpu_torch.ops import adamw as adamw_kernel
+    from metamorph_tpu_torch.train.optimizer import local
+
+    params = tx.trainable(model)
+    st = state["opt_state"]
+    items = [(local(p), local(p.grad).contiguous(), st["mu"][n], st["nu"][n],
+              1e-6, 0) for n, p in params]
+    table = adamw_kernel.build_table(items, 1)
+    dev_table = adamw_kernel.upload(table, items[0][0].device)
+    sc = adamw_kernel.scalars(st["count"], tx.cfg.adam_b1, tx.cfg.adam_b2,
+                              tx.cfg.adam_eps, tx.cfg.weight_decay,
+                              tx.cfg.grad_clip_norm)
+    norm = torch.ones((), dtype=torch.float32, device=dev_table.device)
+    norm_bytes = sum(g.numel() * g.element_size() for _, g, *_ in items)
+    update_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
+                                    + 4 * m.element_size())
+                       for p, g, m, *_ in items)
+    ms = cuda_ms(lambda: tx.update(model, st), calls=10, reps=3)
+    norm_ms = cuda_ms(lambda: adamw_kernel.group_sums(table, dev_table),
+                      calls=10, reps=3)
+    update_ms = cuda_ms(lambda: adamw_kernel.update(table, dev_table, sc,
+                                                    norm), calls=10, reps=3)
+    plain_ms = cuda_ms(lambda: tx._update_plain(model, st), calls=2, reps=3)
+    b = bound(norm_bytes + update_bytes, 0)
+    return dict(params=table.elements, tensors=len(table.entries), ms=ms,
+                norm_pass_ms=norm_ms, update_pass_ms=update_ms,
+                plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], bound_share=b["bound_ms"] / ms,
+                norm_pass_share=bound(norm_bytes, 0)["bound_ms"] / norm_ms,
+                update_pass_share=bound(update_bytes, 0)["bound_ms"]
+                / update_ms, bytes=norm_bytes + update_bytes,
+                ms_method="calls queued between CUDA events (10; plain 2)")
 
 
 def phase_trainer(torch, dev):
@@ -2201,9 +2341,9 @@ def phase_recipe_main(torch, dev, train_row):
         del out
         free_memory(torch)
         # the same batches collated beforehand: no loader work on the host
-        # while the steps run, so the difference in step time is the
-        # loader's share of the host (its Python competes for the GIL with
-        # the thread that launches the step's kernels)
+        # while the steps run, so the difference in step time is what the
+        # loader's worker process still costs the thread that launches the
+        # step's kernels (on a thread, its Python held their GIL)
         ready_iter, ready_args = recipe_builder(
             cfg, d, path, save_steps=0, no_resume=True,
             output_dir=os.path.join(d, "ready"))
@@ -4387,6 +4527,8 @@ def phase_offload(torch, dev, train_row) -> dict:
     from metamorph_tpu_torch.train.profile_train import (packed_row,
                                                          stage2_one_card)
 
+    from metamorph_tpu_torch.ops import adamw as adamw_kernel
+
     cfg, reduced = stage2_one_card(4096)
     reduced = dict(reduced)
 
@@ -4401,7 +4543,8 @@ def phase_offload(torch, dev, train_row) -> dict:
     log("offload 5e: host", json.dumps(row))
     T, K, N = cfg.train.max_seq_len, cfg.mm.num_image_tokens, \
         cfg.train.max_images_per_batch
-    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
+               adamw_kernel.ADAMW_UPDATE)
 
     def run(offload: bool) -> dict:
         c = dataclasses.replace(cfg, train=dataclasses.replace(
@@ -4760,6 +4903,7 @@ def phase_sharded_train(torch, dev, train_row) -> dict:
     from metamorph_tpu_torch.config import MeshConfig
     from metamorph_tpu_torch.convert import init_params
     from metamorph_tpu_torch.multimodal.packing import batch_to_arrays
+    from metamorph_tpu_torch.ops import adamw as adamw_kernel
     from metamorph_tpu_torch.ops import flash_attention as fa
     from metamorph_tpu_torch.parallel import mesh as mesh_lib
     from metamorph_tpu_torch.train.optimizer import local
@@ -4785,7 +4929,8 @@ def phase_sharded_train(torch, dev, train_row) -> dict:
     gen.manual_seed(0)
     s = cfg.siglip.image_size
     pixels = torch.randn((N, s, s, 3), generator=gen, device=dev)
-    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV)
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DQ, fa.FLASH_BWD_DKV,
+               *adamw_kernel.KERNELS)
     for kern in kernels:
         kern.launches = 0
     steps, times = [], []
@@ -5339,6 +5484,20 @@ def kernel_summary(kernel_rows, bwd_rows, opt_rows, drafter_rows, main_row,
                                   "bound_ms", "bound_by", "bound_share",
                                   "library_ms", "bf16_matmul_ms")}
 
+    ah = train_row["adamw"]
+    summary["kernels"].append({
+        "name": "adamw", "route": "cuda",
+        "source": "metamorph_tpu_torch/csrc/adamw.cu",
+        "replaces": "none: metamorph_tpu/train/optimizer.py make_optimizer "
+                    "(optax's AdamW chain, fused by XLA)",
+        **by_path("mm_adamw_update"),
+        "ran_on_card": ah["ran_on_card"],
+        "bitwise_equal": ah["check"]["bitwise_equal"],
+        "norm_rel_err": ah["check"]["norm_rel_err"],
+        **{k: ah[k] for k in ("params", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "bound_share", "norm_pass_ms",
+                              "norm_pass_share", "update_pass_ms",
+                              "update_pass_share", "ms_method")}})
     summary["kernels"].append({
         "name": "w8_matmul", "route": "cuda",
         "source": "metamorph_tpu_torch/csrc/w8_matmul.cu",

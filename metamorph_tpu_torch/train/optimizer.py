@@ -12,16 +12,22 @@
      warmup-cosine schedule (lr = 0 at step 0);
   4. frozen parameters get no moments.
 The moments take the parameter dtype (bf16 on the card), as optax's do.
-The update runs per tensor, in fp32 on flat chunks of at most 256 MB, so
-the temporaries stay small next to 8B parameters; `adamw_chunk_` is that
-update, shared with `PlainAdamW` (optax's plain `adamw`, which the
-visualizer trains with).
+On CUDA tensors both optimizers run on kernel H (`ops/adamw.py`): one
+sum-of-squares pass over every trainable gradient and one update pass over
+g, p, mu and nu, each a launch over a table of the step's tensors, with no
+host sync; there is no fallback. CPU tensors take the plain chain, which
+is the kernel's reference: `global_norm`, then per tensor, in fp32 on flat
+chunks of at most 256 MB, `adamw_chunk_`, shared with `PlainAdamW`
+(optax's plain `adamw`, which the visualizer trains with). The two agree
+bitwise on the update for the same norm; the norm differs by the order of
+its fp32 sums. `AdamW.counts` says which path the last update took.
 
 With `offload_optimizer` (the JAX package's `pinned_host` moments,
 `metamorph_tpu/train/train_step.py:126`) the moments live in pinned host
 memory and each step streams them through the card one chunk at a time
-(`_Offload`): the same arithmetic on the same bits, so the result is
-bitwise that of the moments kept on the card. JAX fetches the whole
+(`_Offload`; on the card each staged chunk is one launch of kernel H's
+update): the same arithmetic on the same bits, so the result is bitwise
+that of the moments kept on the card. JAX fetches the whole
 moment tree into the step; the port overlaps chunk i + 1's copy with
 chunk i's update instead. On the CPU the moments are plain host tensors
 and the same streaming code runs without streams.
@@ -46,6 +52,7 @@ import torch.distributed as dist
 from torch import nn
 
 from metamorph_tpu_torch.config import TrainConfig
+from metamorph_tpu_torch.ops import adamw as adamw_kernel
 from metamorph_tpu_torch.utils import trace
 
 CHUNK = 64 * 1024 * 1024      # elements per fp32 chunk (256 MB)
@@ -140,6 +147,19 @@ def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
     flat = t.view(-1)
     for s in range(0, flat.numel(), CHUNK):
         yield flat[s:s + CHUNK]
+
+
+def _chunk_walk(params, items, state: dict) -> tuple:
+    """The (p, g, mu, nu) chunks of at most CHUNK elements of each
+    parameter (`AdamW.table_items`' p and g, the state's moments), and
+    each chunk's lr."""
+    chunks, lrs = [], []
+    for (name, _), (p, g, _, _, lr, _) in zip(params, items):
+        for chunk in zip(_chunks(p), _chunks(g), _chunks(state["mu"][name]),
+                         _chunks(state["nu"][name])):
+            chunks.append(chunk)
+            lrs.append(lr)
+    return chunks, lrs
 
 
 @torch.no_grad()
@@ -304,6 +324,10 @@ class AdamW:
                 cfg, cfg.vision_tower_lr or cfg.learning_rate),
         }
         self._offload = None
+        # the last update's elements by kernel H and by the plain chain, and
+        # kernel H's launches (the train step's `train.optimizer` span)
+        self.counts = dict(kernel_h_elements=0, plain_elements=0,
+                           kernel_h_launches=0)
         # parameter name -> the process group over which its gradient's
         # local sums of squares add up (set by the sharded step)
         self.norm_groups: Dict[str, object] = {}
@@ -342,34 +366,116 @@ class AdamW:
             total = torch.zeros((), dtype=torch.float32, device=device)
         return total.sqrt()
 
+    def _norm(self, sums: torch.Tensor, groups: list) -> torch.Tensor:
+        """The global norm from kernel H's per-group sums of squares, each
+        all-reduced over its group as `global_norm` does."""
+        for i, group in enumerate(groups):
+            if group is not None:
+                dist.all_reduce(sums[i:i + 1], group=group)
+        total = sums[0]
+        for i in range(1, len(groups)):
+            total = total + sums[i]
+        return total.sqrt()
+
     @torch.no_grad()
     def update(self, model: nn.Module, state: dict) -> torch.Tensor:
-        cfg = self.cfg
-        with trace.span("train.grad_norm"):
-            norm = self.global_norm(model)
         count = state["count"]
-        max_norm = cfg.grad_clip_norm
-        clip = norm >= max_norm
-        items, lrs = [], []
-        for name, p in self.trainable(model):
-            lr = self.schedules[self.labels[name]](count)
+        params = self.trainable(model)
+        launches = adamw_kernel.launches()
+        if params and local(params[0][1]).is_cuda:
+            norm = self._update_cuda(params, state)
+            self.counts = dict(kernel_h_elements=self._elements(params),
+                               plain_elements=0)
+        else:
+            norm = self._update_plain(model, state)
+            self.counts = dict(kernel_h_elements=0,
+                               plain_elements=self._elements(params))
+        self.counts["kernel_h_launches"] = adamw_kernel.launches() - launches
+        state["count"] = count + 1
+        return norm
+
+    @staticmethod
+    def _elements(params) -> int:
+        return sum(local(p).numel() for _, p in params)
+
+    def _lr(self, name: str, count: int) -> float:
+        return self.schedules[self.labels[name]](count)
+
+    def table_items(self, params, state: dict) -> tuple:
+        """Kernel H's table rows for `params` at the state's count: (p, g,
+        mu, nu, lr, norm group index) per parameter, the rank's local
+        shards (mu and nu None when offloaded: the norm pass reads g
+        alone), and the norm groups in index order."""
+        off = self.cfg.offload_optimizer
+        groups: Dict[object, int] = {}
+        items = []
+        for name, p in params:
             if p.grad is None:
                 # a trainable parameter the loss does not reach (the tower
                 # under freeze_vision): Adam sees g = 0 and weight decay
                 # still applies, as with optax's zero gradients
                 p.grad = torch.zeros_like(p)
-            g = local(p.grad).contiguous()
-            for chunk in zip(_chunks(local(p)), _chunks(g),
-                             _chunks(state["mu"][name]),
-                             _chunks(state["nu"][name])):
-                items.append(chunk)
-                lrs.append(lr)
+            grp = groups.setdefault(self.norm_groups.get(name), len(groups))
+            mu, nu = state["mu"][name], state["nu"][name]
+            items.append((local(p), local(p.grad).contiguous(),
+                          None if off else mu, None if off else nu,
+                          self._lr(name, state["count"]), grp))
+        return items, list(groups)
+
+    def _update_cuda(self, params, state: dict) -> torch.Tensor:
+        """Kernel H: the norm pass over a table of every trainable gradient,
+        then the update pass over the same table, or, offloaded, over each
+        staged chunk as a one-entry table."""
+        cfg = self.cfg
+        count = state["count"]
+        off = cfg.offload_optimizer
+        items, groups = self.table_items(params, state)
+        table = adamw_kernel.build_table(items, len(groups))
+        device = items[0][0].device
+        dev_table = adamw_kernel.upload(table, device)
+        with trace.span("train.grad_norm"):
+            norm = self._norm(adamw_kernel.group_sums(table, dev_table),
+                              groups)
+        sc = adamw_kernel.scalars(count, cfg.adam_b1, cfg.adam_b2,
+                                  cfg.adam_eps, cfg.weight_decay,
+                                  cfg.grad_clip_norm)
+        if not off:
+            adamw_kernel.update(table, dev_table, sc, norm)
+            return norm
+        chunks, lrs = _chunk_walk(params, items, state)
 
         def step(i, pc, gc, mc, nc):
-            g32 = gc.float()
-            g32 = torch.where(clip, g32 / norm * max_norm, g32)
-            adamw_chunk_(pc, g32, mc, nc, lrs[i], count, cfg.adam_b1,
-                         cfg.adam_b2, cfg.adam_eps, cfg.weight_decay)
+            one = adamw_kernel.build_table([(pc, gc, mc, nc, lrs[i], 0)], 1)
+            adamw_kernel.update(one, adamw_kernel.upload(one, device), sc,
+                                norm)
+
+        if self._offload is None:
+            self._offload = _Offload(device)
+        self._offload.run(chunks, step)
+        return norm
+
+    def plain_chunk_(self, p, g, mu, nu, lr: float, count: int,
+                     norm: torch.Tensor) -> None:
+        """The plain chain's update of one chunk: the masked clip by the
+        global norm, then `adamw_chunk_`."""
+        cfg = self.cfg
+        g32 = g.float()
+        g32 = torch.where(norm >= cfg.grad_clip_norm,
+                          g32 / norm * cfg.grad_clip_norm, g32)
+        adamw_chunk_(p, g32, mu, nu, lr, count, cfg.adam_b1, cfg.adam_b2,
+                     cfg.adam_eps, cfg.weight_decay)
+
+    def _update_plain(self, model: nn.Module, state: dict) -> torch.Tensor:
+        cfg = self.cfg
+        with trace.span("train.grad_norm"):
+            norm = self.global_norm(model)
+        count = state["count"]
+        params = self.trainable(model)
+        items, lrs = _chunk_walk(params, self.table_items(params, state)[0],
+                                 state)
+
+        def step(i, pc, gc, mc, nc):
+            self.plain_chunk_(pc, gc, mc, nc, lrs[i], count, norm)
 
         if cfg.offload_optimizer and items:
             if self._offload is None:
@@ -378,7 +484,6 @@ class AdamW:
         else:
             for i, chunk in enumerate(items):
                 step(i, *chunk)
-        state["count"] = count + 1
         return norm
 
 
@@ -407,13 +512,25 @@ class PlainAdamW:
     def update(self, module: nn.Module, state: dict) -> None:
         count = state["count"]
         lr = self.schedule(count)
-        for name, p in module.named_parameters():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            for pc, gc, mc, nc in zip(_chunks(p), _chunks(g.contiguous()),
-                                      _chunks(state["mu"][name]),
-                                      _chunks(state["nu"][name])):
-                adamw_chunk_(pc, gc, mc, nc, lr, count, self.b1, self.b2,
-                             self.eps, self.wd)
+        params = list(module.named_parameters())
+        grads = [(p.grad if p.grad is not None else torch.zeros_like(p))
+                 .contiguous() for _, p in params]
+        if params and params[0][1].is_cuda:
+            # kernel H, without the norm pass
+            table = adamw_kernel.build_table(
+                [(p, g, state["mu"][n], state["nu"][n], lr, 0)
+                 for (n, p), g in zip(params, grads)], 1)
+            adamw_kernel.update(
+                table, adamw_kernel.upload(table, params[0][1].device),
+                adamw_kernel.scalars(count, self.b1, self.b2, self.eps,
+                                     self.wd, None), None)
+        else:
+            for (name, p), g in zip(params, grads):
+                for pc, gc, mc, nc in zip(_chunks(p), _chunks(g),
+                                          _chunks(state["mu"][name]),
+                                          _chunks(state["nu"][name])):
+                    adamw_chunk_(pc, gc, mc, nc, lr, count, self.b1,
+                                 self.b2, self.eps, self.wd)
         state["count"] = count + 1
 
 

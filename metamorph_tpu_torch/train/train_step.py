@@ -23,7 +23,9 @@ share rows (sequence peers) encode the same images.
 
 Traced (`utils/trace`), each microbatch is a `train.forward` and a
 `train.backward` span (with its index), and the update a
-`train.optimizer` span holding `train.grad_norm`.
+`train.optimizer` span holding `train.grad_norm`, with the update's
+elements by kernel H and by the plain chain and kernel H's launches
+(`AdamW.counts`) as its attrs.
 """
 
 from __future__ import annotations
@@ -75,8 +77,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     with trace.span("train.backward", index=0):
         total.backward()
     metrics = dict(metrics)
-    with trace.span("train.optimizer"):
+    with trace.span("train.optimizer") as span:
         metrics["grad_norm"] = tx.update(model, state["opt_state"])
+        span.set(**tx.counts)
     state["step"] += 1
     return state, metrics
 
@@ -104,8 +107,9 @@ def accum_train_step(state: TrainState, batches: Dict[str, torch.Tensor],
         if p.grad is not None:
             p.grad.div_(n)
     metrics = {k: v / n for k, v in sums.items()}
-    with trace.span("train.optimizer"):
+    with trace.span("train.optimizer") as span:
         metrics["grad_norm"] = tx.update(model, state["opt_state"])
+        span.set(**tx.counts)
     state["step"] += 1
     return state, metrics
 

@@ -10,6 +10,13 @@ auto-resume. The port runs eagerly, so a batch with another per-image
 token count K (multi-res buckets) just runs with the matching config
 variant; nothing recompiles.
 
+The data iterator runs in a worker process (`ProcessPrefetcher`), two
+batches ahead, so its Python (reading, tokenising, collating) does not
+hold the GIL that the loop launching the step's kernels needs; the loop
+gets each batch with the iterator's state at that batch, for resume, and
+the packer counts it added (`multimodal/native.PACKS`, added to this
+process's).
+
 Besides the step's metrics, each logged step records two host-clock times:
 `data_wait_s`, how long the step waited on the prefetch queue for its
 batches (0 when the background loader kept ahead), and `step_s`, from the
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import os
 import time
+from collections import Counter
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional
 
@@ -48,10 +56,11 @@ import torch.distributed as dist
 from metamorph_tpu_torch.config import MetaMorphConfig, resolve_dtype
 from metamorph_tpu_torch.convert import init_params, resolve_device
 from metamorph_tpu_torch.models import hf_import
+from metamorph_tpu_torch.multimodal import native
 from metamorph_tpu_torch.multimodal.packing import PackedBatch, batch_to_arrays
 from metamorph_tpu_torch.train import checkpoint as ckpt_lib
 from metamorph_tpu_torch.train.optimizer import make_optimizer
-from metamorph_tpu_torch.train.prefetch import Prefetcher
+from metamorph_tpu_torch.train.prefetch import ProcessPrefetcher
 from metamorph_tpu_torch.parallel import mesh as mesh_lib
 from metamorph_tpu_torch.train.train_step import (accum_train_step,
                                                   init_train_state,
@@ -182,13 +191,18 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
         mesh, cfg.train.sequence_parallel)[1] if sharded else 1)
     tokens_since_log = 0
 
-    # each item carries the iterator state at production time, so resume
-    # replays from the right position even with batches in flight
+    # in the worker: each item carries the iterator state at production
+    # time, so resume replays from the right position even with batches in
+    # flight, and the packs it made
+    packs_seen = [Counter(native.PACKS)]
+
     def _with_state(item):
         ds = data_iter.state_dict() if hasattr(data_iter, "state_dict") else None
-        return item, ds
+        packs = Counter(native.PACKS)
+        new, packs_seen[0] = packs - packs_seen[0], packs
+        return item, ds, new
 
-    it = Prefetcher(iter(data_iter), depth=2, transform=_with_state)
+    it = ProcessPrefetcher(iter(data_iter), depth=2, transform=_with_state)
     consumed_data_state = [None]
 
     def save(step):
@@ -218,8 +232,9 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
             data_wait = 0.0
             for _ in range(accum):
                 t = time.perf_counter()
-                (packed, pixels), ds = next(it)
+                (packed, pixels), ds, packs = next(it)
                 data_wait += time.perf_counter() - t
+                native.PACKS.update(packs)
                 consumed_data_state[0] = ds
                 if isinstance(packed, PackedBatch):
                     b = batch_to_arrays(packed)
@@ -274,6 +289,7 @@ def train(cfg: MetaMorphConfig, args: TrainerArgs,
             if saving and step % args.save_steps == 0:
                 save(step)
     finally:
+        it.close()
         metrics_log.close()
 
     if saving:

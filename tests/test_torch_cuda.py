@@ -6,7 +6,8 @@ grouped products against their plain forms and the reference; the serving
 engine's plain ticks replayed from CUDA graphs against its eager ticks
 (dense and on the DeepSeek-V3 block); the visualizer's render on the card
 against the CPU, and its loader's device rule; the offloaded AdamW
-(pinned moments, bitwise the on-card update, a failed pin raising).
+(pinned moments, bitwise the on-card update, a failed pin raising);
+kernel H (AdamW's two passes) bitwise against the plain chain.
 Skips where there is no CUDA device.
 
 On a machine with an NVIDIA GPU (and no JAX, which tests/conftest.py
@@ -1311,6 +1312,235 @@ def test_offload_loads_wait_for_kernels_queued_on_the_main_stream(
     assert torch.equal(out[True][0], out[False][0])
     for a, b in zip(out[True][1], out[False][1]):
         assert torch.equal(a, b)
+
+
+# kernel H (csrc/adamw.cu): the update is held bitwise to the plain chain
+# on the card for the same norm (it does the chain's fp32 operations in
+# their order and rounding); the norm, whose fp32 sums run in another
+# order, to ADAMW_NORM_RTOL of the plain one: sums of up to 64 M squares,
+# each path's relative error well under 1e-6.
+ADAMW_NORM_RTOL = 1e-5
+
+
+def _adamw_state(dev, shapes, dtypes, seed):
+    """(p, g, mu, nu) per shape, seeded; nu >= 0 as a second moment is."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for shape, (pd, gd, md) in zip(shapes, dtypes):
+        out.append((torch.randn(shape, generator=gen, device=dev).to(pd),
+                    torch.randn(shape, generator=gen, device=dev).to(gd),
+                    (1e-2 * torch.randn(shape, generator=gen, device=dev)
+                     ).to(md),
+                    (1e-3 * torch.rand(shape, generator=gen, device=dev)
+                     ).to(md)))
+    return out
+
+
+def _plain_chain(state, lrs, count, wd, norm, max_norm):
+    """`AdamW._update_plain`'s step on each tensor, on the card, with the
+    given norm (max_norm None: no clip, `PlainAdamW`)."""
+    from metamorph_tpu_torch.train.optimizer import _chunks, adamw_chunk_
+
+    for (p, g, mu, nu), lr in zip(state, lrs):
+        for pc, gc, mc, nc in zip(_chunks(p), _chunks(g), _chunks(mu),
+                                  _chunks(nu)):
+            g32 = gc.float()
+            if max_norm is not None:
+                g32 = torch.where(norm >= max_norm, g32 / norm * max_norm,
+                                  g32)
+            adamw_chunk_(pc, g32, mc, nc, lr, count, 0.9, 0.999, 1e-8, wd)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("clip", ["none", "off", "on"])
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["bf16_64M", "ragged", "fp32", "mixed"])
+def test_adamw_kernel_is_bitwise_the_plain_chain(dev, case, wd, clip):
+    """The cell's chunk (64 M bf16 elements), tensors whose numel is no
+    multiple of the 8,192-element block (1, 8,191, 8,193, 100,003, a 2-D
+    one) and a view 2 bytes off 16-byte alignment, fp32 throughout
+    (`PlainAdamW`'s), and mixed dtypes (three launches of one table):
+    the clip engaged, not engaged, or absent; weight decay 0 and 0.1; two
+    lr groups. p, mu and nu bitwise the plain chain's; the norm within
+    ADAMW_NORM_RTOL of the plain global norm; a repeat bitwise equal."""
+    from metamorph_tpu_torch.ops import adamw as ak
+
+    if case == "bf16_64M":
+        shapes, dtypes = [(64 << 20,)], [(BF16, BF16, BF16)]
+    elif case == "fp32":
+        shapes, dtypes = [(8193,), (300, 41), (1,)], [(F32, F32, F32)] * 3
+    elif case == "mixed":
+        shapes = [(8191,), (20000,), (77, 13), (9,)]
+        dtypes = [(BF16, BF16, F32), (BF16, F32, BF16), (F32, BF16, BF16),
+                  (BF16, BF16, F32)]
+    else:
+        shapes = [(1,), (8191,), (8193,), (100003,), (129, 257), (40001,)]
+        dtypes = [(BF16, BF16, BF16)] * 6
+    state = _adamw_state(dev, shapes, dtypes, seed=len(shapes))
+    if case == "ragged":    # a view 2 bytes past an aligned start
+        state[-1] = tuple(t[1:] for t in state[-1])
+    lrs = [1e-3 if i % 2 else 3e-4 for i in range(len(state))]
+    # counts at which x * fp32(1 / bc) and x * (1 / fp32(bc)) part: b2's
+    # bias correction at 0, b1's at 4 and 51
+    count = {"none": 0, "off": 4, "on": 51}[clip]
+    plain_norm = torch.stack([g.float().square().sum()
+                              for _, g, _, _ in state]).sum().sqrt()
+    max_norm = {"none": None, "off": 2 * plain_norm.item(),
+                "on": 0.5 * plain_norm.item()}[clip]
+
+    def kernel_run():
+        st = [tuple(t.clone() for t in row) for row in state]
+        table = ak.build_table([(*row, lr, 0) for row, lr in zip(st, lrs)],
+                               1)
+        dev_table = ak.upload(table, dev)
+        norm = ak.group_sums(table, dev_table)[0].sqrt()
+        n0 = ak.ADAMW_UPDATE.launches
+        ak.update(table, dev_table, ak.scalars(count, 0.9, 0.999, 1e-8, wd,
+                                               max_norm), norm)
+        torch.cuda.synchronize()
+        assert ak.ADAMW_UPDATE.launches - n0 == len(table.runs)
+        return st, norm
+
+    got, norm = kernel_run()
+    again, norm2 = kernel_run()
+    assert torch.equal(norm, norm2)
+    rel = abs(norm.item() - plain_norm.item()) / plain_norm.item()
+    assert rel <= ADAMW_NORM_RTOL, rel
+    want = [tuple(t.clone() for t in row) for row in state]
+    _plain_chain(want, lrs, count, wd, norm, max_norm)
+    for i, (a, b, c) in enumerate(zip(got, again, want)):
+        for name, x, y, z in zip(("p", "g", "mu", "nu"), a, b, c):
+            assert torch.equal(x, y), ("repeat", i, name)
+            assert torch.equal(x, z), (i, name)
+
+
+@pytest.mark.parametrize("offload", [False, True])
+@pytest.mark.parametrize("clip", [1e9, 1e-3])
+def test_adamw_update_on_card_runs_kernel_h_bitwise(dev, monkeypatch, clip,
+                                                    offload):
+    """`AdamW.update` on a bf16 module on the card, one parameter left
+    without a gradient (zeros, as the plain chain gives it), moments on
+    the card or offloaded (CHUNK cut to 2**16, so the 100,003-element
+    weight streams in two staged chunks): every tensor bitwise the plain
+    chain's (`_update_plain`, handed kernel H's norm); the norm within
+    ADAMW_NORM_RTOL of `global_norm`; `counts` name kernel H alone, and its
+    launches are 2 + one per table run, or 2 + one per staged chunk."""
+    from torch import nn
+
+    from metamorph_tpu_torch.config import TrainConfig
+    from metamorph_tpu_torch.ops import adamw as ak
+    from metamorph_tpu_torch.train import optimizer as opt_lib
+
+    monkeypatch.setattr(opt_lib, "CHUNK", 1 << 16)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes = {"projector.w": (100003,), "llama.a": (64, 96),
+              "llama.b": (7,), "siglip.c": (300,)}
+    init = {n: torch.randn(s, generator=gen, device=dev).bfloat16()
+            for n, s in shapes.items()}
+    grads = {n: torch.randn(s, generator=gen, device=dev).bfloat16()
+             for n, s in shapes.items() if n != "llama.b"}
+    cfg = TrainConfig(grad_clip_norm=clip, weight_decay=0.1,
+                      offload_optimizer=offload, vision_tower_lr=2e-4)
+    runs = {}
+    for path in ("kernel", "plain"):
+        model = nn.Module()
+        for n, t in init.items():
+            parent, leaf = n.split(".")
+            if not hasattr(model, parent):
+                setattr(model, parent, nn.Module())
+            setattr(getattr(model, parent), leaf, nn.Parameter(t.clone()))
+        tx = opt_lib.AdamW(cfg, model)
+        state = tx.init(model)
+        state["count"] = 50
+        for step in range(2):
+            for n, p in model.named_parameters():
+                p.grad = grads[n].clone() if n in grads else None
+            if path == "kernel":
+                n0 = ak.launches()
+                norm = tx.update(model, state)
+                runs.setdefault("norms", []).append(norm)
+                assert tx.counts["kernel_h_launches"] == ak.launches() - n0
+            else:
+                plain = tx.global_norm(model)
+                rel = abs(plain.item() - runs["norms"][step].item()) \
+                    / plain.item()
+                assert rel <= ADAMW_NORM_RTOL, rel
+                monkeypatch.setattr(tx, "global_norm",
+                                    lambda m, s=step: runs["norms"][s])
+                tx._update_plain(model, state)
+                state["count"] += 1
+        torch.cuda.synchronize()
+        runs[path] = (model, state, tx)
+    model, state, tx = runs["kernel"]
+    n_chunks = sum(-(-t.numel() // (1 << 16)) for t in init.values())
+    assert tx.counts == dict(kernel_h_elements=sum(
+        t.numel() for t in init.values()), plain_elements=0,
+        kernel_h_launches=2 + (n_chunks if offload else 1))
+    ref_model, ref_state, _ = runs["plain"]
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              ref_model.named_parameters()):
+        assert torch.equal(p, q), n
+    for k in ("mu", "nu"):
+        for n, t in state[k].items():
+            assert t.is_pinned() == offload
+            assert torch.equal(t, ref_state[k][n]), (k, n)
+
+
+def test_plain_adamw_on_card_runs_kernel_h_bitwise(dev):
+    """`PlainAdamW` (the visualizer's: no clip, weight decay on every leaf)
+    on an fp32 module on the card, one leaf without a gradient: one update
+    launch, and every tensor bitwise the plain chain's."""
+    from torch import nn
+
+    from metamorph_tpu_torch.ops import adamw as ak
+    from metamorph_tpu_torch.train.optimizer import PlainAdamW
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    mod = nn.Module()
+    mod.a = nn.Parameter(torch.randn(4099, generator=gen, device=dev))
+    mod.b = nn.Parameter(torch.randn(33, 65, generator=gen, device=dev))
+    mod.c = nn.Parameter(torch.randn(5, generator=gen, device=dev))
+    grads = {"a": torch.randn(4099, generator=gen, device=dev),
+             "b": torch.randn(33, 65, generator=gen, device=dev)}
+    tx = PlainAdamW(lambda c: 1e-3 * (c + 1), weight_decay=0.01)
+    state = tx.init(mod)
+    ref = {n: [p.detach().clone(), torch.zeros_like(p), torch.zeros_like(p)]
+           for n, p in mod.named_parameters()}
+    for count in range(3):
+        for n, p in mod.named_parameters():
+            p.grad = grads[n].clone() if n in grads else None
+        n0 = ak.ADAMW_UPDATE.launches
+        tx.update(mod, state)
+        assert ak.ADAMW_UPDATE.launches == n0 + 1
+        rows = [(p, grads.get(n, torch.zeros_like(p)), mu, nu)
+                for n, (p, mu, nu) in ref.items()]
+        _plain_chain(rows, [1e-3 * (count + 1)] * 3, count, 0.01, None, None)
+    torch.cuda.synchronize()
+    for n, p in mod.named_parameters():
+        assert torch.equal(p, ref[n][0]), n
+        assert torch.equal(state["mu"][n], ref[n][1]), n
+        assert torch.equal(state["nu"][n], ref[n][2]), n
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(dev):
+    """fp16 state, a non-contiguous tensor, a tensor on another device and
+    a clip with no norm raise; nothing falls back to the plain chain."""
+    from metamorph_tpu_torch.ops import adamw as ak
+
+    p = torch.zeros(64, device=dev)
+    sc = ak.scalars(0, 0.9, 0.999, 1e-8, 0.0, 1.0)
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        ak.build_table([(p.half(), p, p, p, 1.0, 0)], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.build_table([(p, torch.zeros(64, 2, device=dev)[:, 0], p, p, 1.0,
+                         0)], 1)
+    with pytest.raises(ValueError, match="not cuda"):
+        ak.upload(ak.build_table([(p, p.cpu(), p, p, 1.0, 0)], 1), dev)
+    with pytest.raises(ValueError, match="norm on the card"):
+        table = ak.build_table([(p, p, p, p.clone(), 1.0, 0)], 1)
+        ak.update(table, ak.upload(table, dev), sc, None)
 
 
 def test_ring_positions_on_card_match_the_plain_ring(dev):

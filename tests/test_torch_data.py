@@ -710,9 +710,13 @@ def test_train_cli_trains_on_the_cpu(mixed_jsonl, tmp_path, capsys,
         return arrays
 
     monkeypatch.setattr(trainer, "batch_to_arrays", counting)
+    packs = N.PACKS["native"]
     out = cli.main(argv + ["--device", "cpu"])
     monkeypatch.setattr(trainer, "batch_to_arrays", to_arrays)
     assert out["step"] == 2
+    # the batches are packed in the loader's worker process, which reports
+    # its packs with each batch
+    assert N.PACKS["native"] == packs + 2
     rows = [json.loads(l) for l in (out_dir / "metrics.jsonl").read_text()
             .splitlines()]
     assert [r["step"] for r in rows] == [1, 2]

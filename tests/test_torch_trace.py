@@ -233,6 +233,20 @@ def test_accum_train_step_spans():
     assert all(a["t1"] <= b["t0"] for a, b in zip(spans[:4], spans[1:5]))
 
 
+def test_optimizer_span_counts_the_update_by_path():
+    """`train.optimizer` carries the update's elements by kernel H and by
+    the plain chain and kernel H's launches: on the CPU every trainable
+    element goes the plain way and nothing launches."""
+    trace.enable()
+    _, params = _accum_steps(n_steps=1)
+    spans = trace.drain()
+    opt = _by_name(spans, "train.optimizer")[0]
+    n = sum(p.numel() for p in params.values() if p.requires_grad)
+    assert n > 0
+    assert opt["attrs"] == dict(kernel_h_elements=0, plain_elements=n,
+                                kernel_h_launches=0)
+
+
 def test_cap_drops_and_counts_and_drain_clears(monkeypatch):
     monkeypatch.setattr(trace, "_CAP", 3)
     trace.enable()
